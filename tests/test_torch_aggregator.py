@@ -1,0 +1,319 @@
+"""The port's pre-parsed ingest slice against the JAX package.
+
+``TpuAggregator.ingest_preparsed`` and ``TorchAggregator.ingest_preparsed``
+(on the CPU) take the same seeded batches: replays, expired and CA
+leaves, a CN filter with an over-long prefix (host lane), a leaf
+expiring within the current hour (host lane), a table grow and probe
+overflow to the host lane. Per-lane results, table rows, metrics and
+drained snapshots must be equal; tolerance is exact equality.
+"""
+
+import copy
+import datetime
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from ct_mapreduce_tpu.agg.aggregator import TpuAggregator
+from ct_mapreduce_tpu.native import leafpack as jleafpack
+from ct_mapreduce_tpu_torch import convert
+from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+from ct_mapreduce_tpu_torch.config import CTConfig
+from ct_mapreduce_tpu_torch.core import der, packing
+from ct_mapreduce_tpu_torch.models.ingest_model import IngestModel
+from ct_mapreduce_tpu_torch.native import leafpack as tleafpack
+from ct_mapreduce_tpu_torch.ops import buckettable
+from ct_mapreduce_tpu_torch.utils import syncerts
+
+UTC = datetime.timezone.utc
+NOW = datetime.datetime(2025, 1, 1, tzinfo=UTC)
+PAD = 2048
+N = 40  # lanes per ingest; the step runs them as 2 chunks of 20
+LONG_CN = "Long" + "x" * 70
+PREFIXES = ("Issuer A", "Issuer B", "Issuer C", LONG_CN[:69])
+# Table: 2 buckets growing once to 4 (the ceiling) in the second
+# batch; one hop allowed, so full buckets overflow to the host lane.
+AGG_KW = dict(capacity=48, batch_size=20, now=NOW, max_probes=1,
+              grow_at=0.9, max_capacity=96, cn_prefixes=PREFIXES)
+N_BATCHES = 6
+CARRY_AFTER = 3  # batches the JAX side runs before state is carried over
+# The clock of each batch. The leaf expiring 30 minutes after NOW goes
+# to the device an hour before NOW and to the exact host lane at NOW, so
+# its serials cross between the two dedup domains both ways and the
+# cross-domain guards decide.
+HOUR = datetime.timedelta(hours=1)
+NOW_BY_BATCH = [NOW - HOUR, NOW - HOUR, NOW, NOW, NOW - HOUR, NOW - HOUR]
+
+
+def _templates():
+    def tpl(cn, slen, key="ec", **delta):
+        return syncerts.make_template(
+            issuer_cn=cn, not_after=NOW + datetime.timedelta(**delta),
+            serial_len=slen, key_type=key, rich_extensions=True,
+            crl_dp=f"http://crl.{cn[:8].replace(' ', '').lower()}.example/x.crl")
+
+    t = [tpl("Issuer A", 8, days=400), tpl("Issuer B", 12, "rsa2048", days=700),
+         tpl("Issuer C", 16, days=900), tpl("Issuer D", 20, "rsa2048", days=300),
+         tpl(LONG_CN, 10, days=500),  # undecidable CN prefix: host lane
+         tpl("Issuer A", 9, days=-30),  # expired
+         tpl("Issuer C", 11, minutes=30)]  # boundary hour: host lane
+    ca = der.parse_cert(t[1].issuer_der)  # a CA certificate as a leaf
+    t.append(syncerts.CertTemplate(leaf_der=t[1].issuer_der,
+                                   issuer_der=t[1].issuer_der,
+                                   serial_off=ca.serial_off,
+                                   serial_len=ca.serial_len))
+    return t
+
+
+def _batches(templates):
+    rng = np.random.default_rng(5)
+    w = np.array([30, 20, 15, 10, 5, 4, 15, 3], float)
+    w /= w.sum()
+    pool, counter, out = [], 1, []
+    for _ in range(N_BATCHES):
+        tof = rng.choice(len(templates), size=N, p=w)
+        entries = []
+        for i in range(N):
+            if pool and rng.random() < 0.4:  # replay an earlier serial
+                tof[i], c = pool[rng.integers(len(pool))]
+            else:
+                c, counter = counter, counter + 1
+                pool.append((tof[i], c))
+            entries.append(
+                (syncerts.stamp_serial(templates[tof[i]], int(c)), 0))
+        packed = packing.pack_entries(entries, pad_len=PAD)
+        valid = packed.valid.copy()
+        valid[-2:] = False
+        out.append((packed.data, packed.length, tof, valid))
+    return out
+
+
+def _result(res):
+    return (res.was_unknown.copy(), res.filtered.copy(), res.exp_hours.copy(),
+            list(res.serials), res.host_lane_count)
+
+
+def _snapshot(snap):
+    return snap.counts, snap.crls, snap.dns, snap.total
+
+
+def _ingest(agg, leafpack, batch, idx_of, now=None):
+    if now is not None:
+        agg._fixed_now = now
+    data, length, tof, valid = batch
+    sc = leafpack.extract_sidecars(data, length)
+    return agg.ingest_preparsed(sc, idx_of[tof], valid, data, length)
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    templates = _templates()
+    return templates, _batches(templates)
+
+
+@pytest.fixture(scope="module")
+def jax_run(corpus):
+    """The JAX reference, run once: per-batch results, rows and
+    metrics, the state after CARRY_AFTER batches, the final drain."""
+    templates, batches = corpus
+    agg = TpuAggregator(**AGG_KW)
+    idx_of = np.array([agg.registry.get_or_assign(t.issuer_der)
+                       for t in templates], np.int32)
+    steps, carried = [], None
+    for i, batch in enumerate(batches):
+        if i == CARRY_AFTER:
+            carried = dict(
+                rows=np.asarray(agg.table.rows).copy(),
+                count=int(np.asarray(agg.table.count)),
+                registry=agg.registry.to_json(),
+                host=copy.deepcopy({k: getattr(agg, k) for k in (
+                    "host_serials", "crl_sets", "dn_sets", "_crl_raw_seen",
+                    "_dn_raw_seen", "metrics", "issuer_totals",
+                    "_table_fill", "_device_written")}))
+        res = _ingest(agg, jleafpack, batch, idx_of, NOW_BY_BATCH[i])
+        steps.append(dict(res=_result(res), rows=np.asarray(agg.table.rows).copy(),
+                          metrics=dict(agg.metrics), capacity=agg.capacity))
+    return dict(idx_of=idx_of, steps=steps, carried=carried,
+                snapshot=_snapshot(agg.drain()),
+                totals=agg.issuer_totals.copy())
+
+
+def _check_batch(agg, res, want):
+    got = _result(res)
+    for g, w in zip(got[:3], want["res"][:3]):
+        np.testing.assert_array_equal(g, w)
+    assert got[3:] == want["res"][3:]
+    np.testing.assert_array_equal(buckettable.host_rows(agg.table), want["rows"])
+    assert agg.metrics == want["metrics"]
+    assert agg.capacity == want["capacity"]
+
+
+def test_slice_matches_jax_batch_by_batch(corpus, jax_run):
+    templates, batches = corpus
+    agg = TorchAggregator(device="cpu", **AGG_KW)
+    idx_of = np.array([agg.registry.get_or_assign(t.issuer_der)
+                       for t in templates], np.int32)
+    np.testing.assert_array_equal(idx_of, jax_run["idx_of"])
+    for i, (batch, want) in enumerate(zip(batches, jax_run["steps"])):
+        _check_batch(agg, _ingest(agg, tleafpack, batch, idx_of,
+                                  NOW_BY_BATCH[i]), want)
+    assert _snapshot(agg.drain()) == jax_run["snapshot"]
+    np.testing.assert_array_equal(agg.issuer_totals, jax_run["totals"])
+    # The corpus reached every path it is meant to.
+    m = agg.metrics
+    assert agg.capacity > AGG_KW["capacity"]
+    assert m["overflow"] > 0 and m["host_lane"] > m["overflow"]
+    assert m["filtered_ca"] and m["filtered_expired"] and m["filtered_cn"]
+    assert agg.host_serials and m["known"] > 0
+
+
+def test_slice_continues_from_carried_jax_state(corpus, jax_run):
+    """State taken out of the JAX aggregator through convert.py continues
+    in the port exactly as it does in JAX."""
+    templates, batches = corpus
+    c = jax_run["carried"]
+    agg = TorchAggregator(device="cpu", **AGG_KW)
+    agg.table = convert.table_from_numpy(c["rows"], c["count"], device="cpu")
+    agg.capacity = agg.table.capacity
+    agg.registry = convert.registry_from_json(c["registry"])
+    assert convert.registry_to_json(agg.registry) == c["registry"]
+    rows, count = convert.table_to_numpy(agg.table)
+    np.testing.assert_array_equal(rows, c["rows"])
+    assert count == c["count"]
+    for k, v in copy.deepcopy(c["host"]).items():
+        setattr(agg, k, v)
+    idx_of = np.array([agg.registry.get_or_assign(t.issuer_der)
+                       for t in templates], np.int32)
+    np.testing.assert_array_equal(idx_of, jax_run["idx_of"])
+    for i in range(CARRY_AFTER, N_BATCHES):
+        _check_batch(agg, _ingest(agg, tleafpack, batches[i], idx_of,
+                                  NOW_BY_BATCH[i]), jax_run["steps"][i])
+    assert _snapshot(agg.drain()) == jax_run["snapshot"]
+
+
+def test_overflow_spill_past_flag_cap_matches_jax(corpus):
+    """A tiny table, growth off, one hop: most lanes overflow, past the
+    compacted flag capacity, so the fold reads the full overflow bitmask
+    (the ``flag_cap_spill`` counter) and the host lane takes the lanes."""
+    from ct_mapreduce_tpu.telemetry import metrics as jmetrics
+    from ct_mapreduce_tpu_torch.telemetry import metrics as tmetrics
+
+    templates, _ = corpus
+    n = 512
+    entries = [(syncerts.stamp_serial(templates[i % 4], 50_000 + i), 0)
+               for i in range(n)]
+    pb = packing.pack_entries(entries, pad_len=PAD)
+    kw = dict(capacity=32, batch_size=n, now=NOW, max_probes=1, grow_at=0,
+              max_capacity=32)
+    out = []
+    for agg_cls, leafpack, metrics, extra in (
+            (TpuAggregator, jleafpack, jmetrics, {}),
+            (TorchAggregator, tleafpack, tmetrics, {"device": "cpu"})):
+        agg = agg_cls(**kw, **extra)
+        idx_of = np.array([agg.registry.get_or_assign(t.issuer_der)
+                           for t in templates], np.int32)
+        sink, prev = metrics.InMemSink(), metrics.get_sink()
+        metrics.set_sink(sink)
+        try:
+            res = _ingest(agg, leafpack, (pb.data, pb.length,
+                                          np.arange(n) % 4, pb.valid), idx_of)
+        finally:
+            metrics.set_sink(prev)
+        counters = sink.snapshot()["counters"]
+        out.append((_result(res), dict(agg.metrics),
+                    _snapshot(agg.drain()),
+                    {k: counters.get(k) for k in (
+                        "ingest.flag_cap_spill", "ingest.d2h_flag_bytes",
+                        "ingest.d2h_readback_bytes")}))
+    (jres, jm, jsnap, jc), (tres, tm, tsnap, tc) = out
+    for g, w in zip(tres[:3], jres[:3]):
+        np.testing.assert_array_equal(g, w)
+    assert tres[3:] == jres[3:]
+    assert (tm, tsnap, tc) == (jm, jsnap, jc)
+    assert tm["overflow"] > 64 and tc["ingest.flag_cap_spill"] == 1
+
+
+def test_sidecars_match_jax_native(corpus):
+    """The copied C++ walker against the JAX package's, on the corpus
+    and on byte-flipped copies of it (which the walker must reject or
+    parse exactly the same way)."""
+    _templates, batches = corpus
+    data = np.concatenate([b[0] for b in batches])
+    length = np.concatenate([b[1] for b in batches])
+    rng = np.random.default_rng(77)
+    mutated = np.repeat(data, 4, axis=0)
+    rows = np.arange(mutated.shape[0])
+    for _ in range(3):
+        mutated[rows, rng.integers(0, 400, rows.size)] ^= rng.integers(
+            1, 256, rows.size).astype(np.uint8)
+    data = np.concatenate([data, mutated])
+    length = np.concatenate([length, np.repeat(length, 4)])
+    want = jleafpack.extract_sidecars(data, length)
+    assert 0 < want.ok.sum() < len(want.ok)
+    got = tleafpack.extract_sidecars(data, length, threads=3)
+    for name in want.__dataclass_fields__:
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+
+
+def test_table_from_numpy_validates_rows():
+    with pytest.raises(ValueError, match="uint32"):
+        convert.table_from_numpy(np.zeros((4, 128), np.int32), 0, device="cpu")
+    with pytest.raises(ValueError, match="power of two"):
+        convert.table_from_numpy(np.zeros((3, 128), np.uint32), 0, device="cpu")
+
+
+def test_ingest_model_from_config(tmp_path, corpus):
+    ini = tmp_path / "ct.ini"
+    ini.write_text("batchSize = 32\ntableBits = 10\ntableGrowAt = 0.5\n"
+                   "tableMaxBits = 12\nissuerCNFilter = Issuer A,Issuer B\n")
+    cfg = CTConfig.load(["-config", str(ini)], env={"tableMaxBits": "13"})
+    assert (cfg.batch_size, cfg.table_bits, cfg.table_grow_at,
+            cfg.table_max_bits) == (32, 10, 0.5, 13)
+    with pytest.raises(NotImplementedError, match="pre-parsed"):
+        IngestModel.from_config(cfg, device="cpu")
+    cfg = CTConfig.load(["-config", str(ini)],
+                        env={"preparsedIngest": "true", "meshShape": "data:2",
+                             "logExpiredEntries": "true"})
+    with pytest.raises(NotImplementedError, match="more than one device"):
+        IngestModel.from_config(cfg, device="cpu")
+    cfg.mesh_shape = ""
+    model = IngestModel.from_config(cfg, device="cpu")
+    agg = model.aggregator
+    assert agg.capacity == 64 * 24 and agg.max_capacity == 128 * 24
+    assert agg.cn_prefixes == ("Issuer A", "Issuer B")
+    templates, batches = corpus
+    reg = model.aggregator.registry
+    idx_of = np.array([reg.get_or_assign(t.issuer_der) for t in templates],
+                      np.int32)
+    data, length, tof, valid = batches[0]
+    res = model.ingest_packed(data, length, idx_of[tof], valid)
+    # A run of fresh serials from one template: all new but the replays.
+    fresh, flen = syncerts.stamp_batch_array(templates[0], 10_000, N, PAD)
+    res2 = model.ingest_packed(fresh, flen, np.full((N,), idx_of[0]),
+                               np.ones((N,), bool))
+    assert res2.was_unknown.all()
+    assert res.was_unknown.sum() + N == model.drain().total
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "import ct_mapreduce_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None and ("
+        "m == 'ct_mapreduce_tpu' or m.startswith('ct_mapreduce_tpu.') "
+        "or m.startswith('jax'))]\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20

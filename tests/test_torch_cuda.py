@@ -1,0 +1,164 @@
+"""The port on a CUDA card: each kernel against its plain PyTorch
+version, and the tensor-op layers on the card against the same code on
+the CPU. Tolerance: exact equality (integer arithmetic throughout).
+
+Every test here needs a CUDA device and skips without one. The file
+imports nothing of JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+"""
+
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+from ct_mapreduce_tpu_torch.core import packing
+from ct_mapreduce_tpu_torch.ops import buckettable, pipeline, sha256, sha256_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _fields(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    slen = (np.arange(n) % (packing.MAX_SERIAL_BYTES + 1)).astype(np.int32)
+    ser = rng.integers(0, 256, (n, packing.MAX_SERIAL_BYTES), dtype=np.uint8)
+    ser[np.arange(packing.MAX_SERIAL_BYTES)[None, :] >= slen[:, None]] = 0
+    ii = rng.integers(0, 1 << 14, n).astype(np.int32)
+    eh = rng.integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32)
+    return ii, eh, ser, slen
+
+
+def test_fingerprint_kernel_matches_plain_and_hashlib(cuda):
+    fields = _fields(4099, 1)  # not a multiple of the block size
+    args = [torch.from_numpy(a).to(cuda) for a in fields]
+    before = sha256_cuda.LAUNCHES
+    got = sha256.sha256_fingerprint64(*args)
+    torch.cuda.synchronize()
+    assert sha256_cuda.LAUNCHES == before + 1
+    assert torch.equal(got, sha256.fingerprints_plain(*args))
+    got = got.cpu().numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, packing.fingerprints_np(*fields))
+    ii, eh, ser, slen = fields
+    for i in range(0, len(ii), 97):
+        msg = packing.fingerprint_message(
+            int(ii[i]), int(eh[i]), ser[i, : slen[i]].tobytes())
+        assert got[i].astype(">u4").tobytes() == hashlib.sha256(msg).digest()[16:]
+
+
+def test_fingerprint_kernel_checks_its_inputs(cuda):
+    ii, eh, ser, slen = (torch.from_numpy(a).to(cuda) for a in _fields(64, 2))
+    with pytest.raises(TypeError):
+        sha256_cuda.fingerprint64(ii.long(), eh, ser, slen)
+    with pytest.raises(ValueError, match="shape"):
+        sha256_cuda.fingerprint64(ii, eh[:10], ser, slen)
+    with pytest.raises(ValueError, match="contiguous"):
+        sha256_cuda.fingerprint64(ii, eh, ser.t().contiguous().t(), slen)
+    with pytest.raises(ValueError):
+        sha256_cuda.fingerprint64(ii, eh.cpu(), ser, slen)
+    before = sha256_cuda.LAUNCHES
+    empty = sha256_cuda.fingerprint64(ii[:0], eh[:0], ser[:0], slen[:0])
+    assert empty.shape == (0, 4) and sha256_cuda.LAUNCHES == before
+
+
+def test_insert_and_step_on_card_match_cpu(cuda):
+    """The bucket insert and the pre-parsed step give the same bytes on
+    the card as on the CPU (sort stability, cummax, scatter order)."""
+    rng = np.random.default_rng(3)
+    k, b = 2, 4096
+    slen = rng.integers(8, 21, (k, b)).astype(np.int32)
+    ser = rng.integers(0, 256, (k, b, 46), dtype=np.uint8)
+    ser[np.arange(46)[None, None, :] >= slen[..., None]] = 0
+    ser[1, :1024], slen[1, :1024] = ser[0, :1024], slen[0, :1024]
+    nah = rng.integers(400_000, 500_000, (k, b)).astype(np.int32)
+    nah[1, :1024] = nah[0, :1024]
+    ii = rng.integers(0, 64, (k, b)).astype(np.int32)
+    ii[1, :1024] = ii[0, :1024]
+    ins = rng.random((k, b)) < 0.97
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        table = buckettable.make_table(24 * 256, device=dev)  # ~65% load
+        table, out = pipeline.preparsed_core(
+            table, *(torch.from_numpy(a).to(dev) for a in (ser, slen, nah, ii, ins)),
+            400_000, num_issuers=64, max_probes=4, flag_cap=64)
+        keys = torch.from_numpy(packing.fingerprints_np(
+            ii[0], nah[0], ser[0], slen[0]).view(np.int32)).to(dev)
+        outs.append((buckettable.host_rows(table), out.packed.cpu().numpy(),
+                     out.overflow_bits.cpu().numpy(),
+                     buckettable.contains(table, keys).cpu().numpy()))
+    for c, g in zip(*outs):
+        np.testing.assert_array_equal(g, c)
+    assert (outs[0][0][:, buckettable.FILL_WORD] == buckettable.SLOTS).any()
+
+
+def test_aggregator_on_card_matches_cpu(cuda):
+    """The whole slice on the card against the same slice on the CPU:
+    replays, expired and CA leaves, a leaf in its expiry hour (exact
+    host lane), a grow and probe overflow (host lane + device guard)."""
+    import datetime
+
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+    from ct_mapreduce_tpu_torch.core import der
+    from ct_mapreduce_tpu_torch.native import leafpack
+    from ct_mapreduce_tpu_torch.utils import syncerts
+
+    utc = datetime.timezone.utc
+    now = datetime.datetime(2025, 1, 1, tzinfo=utc)
+    tpls = [syncerts.make_template(
+        issuer_cn=f"Card Issuer {i}", serial_len=8 + 3 * i,
+        not_after=now + datetime.timedelta(days=100 + 50 * i),
+        key_type="rsa2048" if i % 2 else "ec") for i in range(4)]
+    tpls.append(syncerts.make_template(  # expired
+        issuer_cn="Card Issuer 0", not_after=now - datetime.timedelta(days=3)))
+    tpls.append(syncerts.make_template(  # expires within the hour
+        issuer_cn="Card Issuer 1", not_after=now + datetime.timedelta(minutes=9)))
+    ca = der.parse_cert(tpls[2].issuer_der)
+    tpls.append(syncerts.CertTemplate(tpls[2].issuer_der, tpls[2].issuer_der,
+                                      ca.serial_off, ca.serial_len))
+    rng = np.random.default_rng(9)
+    batches, pool, counter = [], [], 1
+    for _ in range(5):
+        entries = []
+        for t in rng.choice(len(tpls), size=160, p=[.3, .2, .2, .1, .1, .05, .05]):
+            if pool and rng.random() < 0.4:
+                t, c = pool[rng.integers(len(pool))]
+            else:
+                c, counter = counter, counter + 1
+                pool.append((t, c))
+            entries.append((syncerts.stamp_serial(tpls[t], int(c)), int(t)))
+        batches.append(packing.pack_entries(entries, pad_len=2048))
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        agg = TorchAggregator(capacity=24 * 8, batch_size=128, now=now,
+                              max_probes=2, grow_at=0.9, max_capacity=24 * 16,
+                              device=dev)
+        idx_of = np.array([agg.registry.get_or_assign(t.issuer_der)
+                           for t in tpls], np.int32)
+        results = []
+        for pb in batches:
+            sc = leafpack.extract_sidecars(pb.data, pb.length)
+            res = agg.ingest_preparsed(sc, idx_of[pb.issuer_idx], pb.valid,
+                                       pb.data, pb.length)
+            results.append((res.was_unknown.copy(), res.filtered.copy(),
+                            list(res.serials),
+                            buckettable.host_rows(agg.table).copy()))
+        snap = agg.drain()
+        runs.append((results, dict(agg.metrics), agg.capacity,
+                     (snap.counts, snap.crls, snap.dns, snap.total)))
+    (cpu_res, cpu_m, cpu_cap, cpu_snap), (gpu_res, gpu_m, gpu_cap, gpu_snap) = runs
+    for c, g in zip(cpu_res, gpu_res):
+        np.testing.assert_array_equal(g[0], c[0])
+        np.testing.assert_array_equal(g[1], c[1])
+        assert g[2] == c[2]
+        np.testing.assert_array_equal(g[3], c[3])
+    assert (gpu_m, gpu_cap, gpu_snap) == (cpu_m, cpu_cap, cpu_snap)
+    assert cpu_cap > 24 * 8 and cpu_m["overflow"] > 0
+    assert cpu_m["host_lane"] > cpu_m["overflow"]

@@ -2,34 +2,49 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # full size, one card, a few minutes
-    python3 chip_smoke.py --profile DIR   # plus a torch.profiler pass
-    python3 chip_smoke.py --sass DIR      # plus the kernel's ptxas/SASS report
+    python3 chip_smoke.py --profile DIR   # plus torch.profiler passes
+    python3 chip_smoke.py --sass DIR      # plus the kernels' ptxas/SASS report
 
 The port is ``ct_mapreduce_tpu_torch``, imported from this checkout.
 
 Phases, none of them caught — any failure exits non-zero:
 
-1. card: name and power limit (``nvidia-smi``), then the fingerprint
-   kernel (``nvcc`` for sm_90a) and the native sidecar decoder (``g++``)
-   built from this checkout, in parallel;
-2. the fingerprint kernel against its plain PyTorch version on 2^20
-   lanes (bit for bit), a sample against ``hashlib`` and the host
-   fingerprint, both timed with CUDA events;
-3. the main path through ``IngestModel`` at ``batchSize`` 2^20 from the
-   shipped ``tableBits`` 22: 16 issuers split by Zipf(1.1), EC and
-   RSA-sized leaves with the rich extension load, serial lengths 8..20,
-   about half the entries replaying an earlier serial, a few percent
-   expired leaves and CA certificates; enough batches for a table grow.
-   ``drain()`` and every batch's per-lane ``was_unknown`` are held to an
-   exact host oracle;
-4. a 2 GiB table (``tableBits`` 26, 2^22 buckets) prefilled to about 50%
+1. card: name and power limit (``nvidia-smi``), then the three kernel
+   libraries (``nvcc`` for sm_90a: the fingerprint SHA-256 K1, the DER
+   walker K3, the ten probe stages) and the native sidecar decoder
+   (``g++``), all built from this checkout at once;
+2. K1 against its plain PyTorch version on 2^20 lanes (bit for bit), a
+   sample against ``hashlib`` and the host fingerprint, both timed with
+   CUDA events;
+3. K3 against its plain version on 2^20 stream rows plus mutants made
+   from ``--seed`` (byte flips, length-octet edits, truncations,
+   extension lists past MAX_EXTS) and the crafted edge cases, every
+   field bit for bit, and the same rows against the native scalar
+   walker; K3 and its plain version timed on the stream rows;
+4. the probe ladder: its command-line path on the card (each stage at
+   one tile against its plain version, stage 9 against the host
+   parser, stage 9 timed at 2^20 lanes), then every stage at 2^20 lanes
+   against its plain version, timed;
+5. the walker main path, the default lane: ``IngestModel`` at
+   ``batchSize`` 2^20 from the shipped ``tableBits`` 22, with an issuer
+   CN filter that keeps 12 of 16 issuers and a 64-byte prefix of a
+   70-byte issuer CN (those lanes take the exact host lane): 16 issuers
+   split by Zipf(1.1), EC and RSA-sized leaves with the rich extension
+   load, serial lengths 8..20, about half the entries replaying an
+   earlier serial, a few percent expired leaves and CA certificates;
+   enough batches for a table grow. ``drain()`` and every batch's
+   ``was_unknown`` are held to an exact host oracle;
+6. the pre-parsed lane over the same batches and config: held to the
+   oracle, and its ``drain()`` to the walker lane's;
+7. a 2 GiB table (``tableBits`` 26, 2^22 buckets) prefilled to about 50%
    of its slots with random keys through the port's insert, then one
-   main-path batch on top; ``was_unknown`` against the oracle and
+   pre-parsed batch on top; ``was_unknown`` against the oracle and
    ``contains`` over every inserted key.
 
-The kernel launch count is set to 0 just before each main-path run and
-read just after it. Prints the card line, a ``{"kernels": [...]}`` line,
-and as the last line ``{"ok": true, "device": {...}}``.
+The kernels' launch counts are set to 0 just before each main path
+(walker, pre-parsed, probe ladder) and read just after it. Prints the
+card line, a ``{"kernels": [...]}`` line, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -61,7 +76,14 @@ MAIN_BATCHES = 10  # enough for the shipped tableBits 22 to grow once
 TABLE_BITS = 22  # the shipped default
 BIG_TABLE_BITS = 26  # 2^22 buckets: 2 GiB of rows
 TIMED_REPS = 25  # CUDA-event timings per turn (two turns each)
+PLAIN_REPS = 5  # timings per turn of a slow plain version
 KERNEL_CALLS_PER_TIMING = 20  # back-to-back launches between two events
+MUTANTS = 8192  # mutated rows beside the 2^20 stream rows in phase 3
+FOOTPRINT_CHUNK = 1 << 16  # lanes per footprint count (memory)
+# A read byte costs a thread at least an address add, a load and the
+# shift/mask or compare that uses it: integer operations per byte read,
+# for the operations half of a walker or probe bound.
+OPS_PER_BYTE_READ = 3
 
 
 def fail(msg: str) -> None:
@@ -82,23 +104,32 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def kernel_libs() -> dict:
+    from ct_mapreduce_tpu_torch.ops import der_kernel_cuda, sha256_cuda
+    from ct_mapreduce_tpu_torch.tools import mosaic_probe
+
+    return {"k1": sha256_cuda.LIB, "k3": der_kernel_cuda.LIB,
+            "probe": mosaic_probe.LIB}
+
+
 def build_all() -> dict:
-    """Build the fingerprint kernel and the native decoder at once."""
+    """Build the three kernel libraries and the native decoder at once,
+    one compiler process each."""
     from ct_mapreduce_tpu_torch import native
-    from ct_mapreduce_tpu_torch.ops import sha256_cuda
 
     def timed(fn):
         t0 = time.perf_counter()
         out = fn()
         return out, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        k1 = pool.submit(timed, sha256_cuda.build)
-        nat = pool.submit(timed, native.load)
-        so, k1_s = k1.result()
-        lib, nat_s = nat.result()
-    check(lib is not None, "the native sidecar decoder did not build")
-    return {"k1_so": so, "k1_build_s": k1_s, "native_build_s": nat_s}
+    jobs = {name: lib.build for name, lib in kernel_libs().items()}
+    jobs["native"] = native.load
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futs = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
+        done = {name: f.result() for name, f in futs.items()}
+    check(done["native"][0] is not None,
+          "the native sidecar decoder did not build")
+    return {f"{name}_build_s": t for name, (_out, t) in done.items()}
 
 
 def cuda_times(fn, reps: int, calls: int = 1,
@@ -130,41 +161,44 @@ def median(xs: list[float]) -> float:
 
 
 def sass_report(out_dir: str) -> dict:
-    """Registers and spills of the fingerprint kernel (``nvcc`` with
-    ``-Xptxas -v``, the library's own flags) and its SASS instructions
-    by opcode (``cuobjdump -sass``); both outputs go to ``out_dir``."""
+    """Per kernel library: registers and spills (``nvcc`` with
+    ``-Xptxas -v``, the library's own flags) and SASS instructions by
+    opcode (``cuobjdump -sass``); the raw outputs go to ``out_dir``."""
     import collections
     import re
 
-    from ct_mapreduce_tpu_torch.ops import sha256_cuda
+    from ct_mapreduce_tpu_torch.ops import cuda_build
 
     os.makedirs(out_dir, exist_ok=True)
-    nvcc = sha256_cuda._nvcc()
-    so = os.path.join(out_dir, "sha256_fp_ptxas.so")
-    res = subprocess.run(
-        [nvcc, *sha256_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
-         sha256_cuda._SRC],
-        capture_output=True, text=True, timeout=600, check=True)
-    ptxas = res.stdout + res.stderr
-    sass = subprocess.run(
-        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", so],
-        capture_output=True, text=True, timeout=120, check=True).stdout
-    for name, text in (("ptxas.txt", ptxas), ("sass.txt", sass)):
-        with open(os.path.join(out_dir, name), "w") as f:
-            f.write(text)
-    ops = collections.Counter(m.group(1).split(".")[0] for m in re.finditer(
-        r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
-        sass, re.M))
-    regs = re.search(r"Used (\d+) registers", ptxas)
-    spills = re.search(r"(\d+) bytes spill stores", ptxas)
-    out = {"registers": int(regs.group(1)) if regs else None,
-           "spill_store_bytes": int(spills.group(1)) if spills else None,
-           "instructions": sum(ops.values()),
-           "by_opcode": dict(ops.most_common())}
-    print(f"sass: {out['registers']} registers, {out['spill_store_bytes']} "
-          f"B spilled, {out['instructions']} instructions; "
-          f"{dict(ops.most_common(8))}", flush=True)
-    return out
+    nvcc = cuda_build.nvcc()
+    report = {}
+    for name, lib in kernel_libs().items():
+        so = os.path.join(out_dir, f"{name}_ptxas.so")
+        res = subprocess.run(
+            [nvcc, *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
+             lib.path], capture_output=True, text=True, timeout=600,
+            check=True)
+        ptxas = res.stdout + res.stderr
+        sass = subprocess.run(
+            [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", so],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        for kind, text in (("ptxas", ptxas), ("sass", sass)):
+            with open(os.path.join(out_dir, f"{name}_{kind}.txt"), "w") as f:
+                f.write(text)
+        ops = collections.Counter(m.group(1).split(".")[0] for m in re.finditer(
+            r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
+            sass, re.M))
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", ptxas)]
+        report[name] = {"registers_max": max(regs, default=None),
+                        "spill_store_bytes": sum(spills),
+                        "instructions": sum(ops.values()),
+                        "by_opcode": dict(ops.most_common())}
+        print(f"sass {name}: at most {report[name]['registers_max']} "
+              f"registers, {sum(spills)} B spilled, "
+              f"{report[name]['instructions']} instructions; "
+              f"{dict(ops.most_common(8))}", flush=True)
+    return report
 
 
 # -- phase 2: the kernel against its plain version ----------------------
@@ -257,12 +291,20 @@ class Stream:
     """Leaf rows from per-issuer templates, stamped with serials from a
     global counter. A replay repeats an earlier (template, counter) —
     the precertificate and final certificate a log carries under one
-    serial — so the truth of every lane is known by construction."""
+    serial — so the truth of every lane is known by construction.
+
+    With ``cn_filter`` the stream comes with an issuer-CN filter that
+    keeps ``KEPT`` of the 16 issuers, and one more issuer whose 70-byte
+    CN matches a 64-byte prefix: longer than the device's 61-byte CN
+    window, so the device cannot decide and those lanes take the exact
+    host lane."""
 
     N_ISSUERS = 16
+    KEPT = 12
     PAD = 2048
+    LONG_CN = "Smoke Issuer Long-Named Certification Authority " + "L" * 21
 
-    def __init__(self, seed: int) -> None:
+    def __init__(self, seed: int, cn_filter: bool = False) -> None:
         import numpy as np
 
         from ct_mapreduce_tpu_torch.core import der
@@ -292,11 +334,21 @@ class Stream:
         tpls.append(syncerts.CertTemplate(
             leaf_der=tpls[1].issuer_der, issuer_der=tpls[1].issuer_der,
             serial_off=ca.serial_off, serial_len=ca.serial_len))
-        self.templates = tpls
         self.filtered = np.zeros(len(tpls), bool)
         self.filtered[self.N_ISSUERS:] = True
-        w = syncerts.zipf_weights(self.N_ISSUERS, 1.1) * 0.95
-        self.weights = np.concatenate([w, [0.03, 0.02]])
+        w = syncerts.zipf_weights(self.N_ISSUERS, 1.1)
+        if cn_filter:
+            tpls.append(syncerts.make_template(
+                issuer_cn=self.LONG_CN, serial_len=14, rich_extensions=True,
+                not_after=datetime.datetime(2028, 3, 3, 3, tzinfo=utc),
+                crl_dp="http://crl.long.smoke.example/l.crl"))
+            self.filtered[self.KEPT:self.N_ISSUERS] = True
+            self.filtered = np.append(self.filtered, False)
+            self.weights = np.concatenate([w * 0.945, [0.03, 0.02, 0.005]])
+        else:
+            self.weights = np.concatenate([w * 0.95, [0.03, 0.02]])
+        self.cn_filter = cn_filter
+        self.templates = tpls
         self.rows = np.zeros((len(tpls), self.PAD), np.uint8)
         self.lens = np.zeros(len(tpls), np.int32)
         for i, t in enumerate(tpls):
@@ -318,6 +370,13 @@ class Stream:
             })
         self.next_counter = 1
         self.template_of = np.zeros((1,), np.int32)  # by counter
+
+    def cn_prefixes(self) -> tuple[str, ...]:
+        """The filter that keeps issuers 00..11 and the long-CN issuer."""
+        if not self.cn_filter:
+            return ()
+        return ("Smoke Issuer 0", "Smoke Issuer 10", "Smoke Issuer 11",
+                self.LONG_CN[:64])
 
     def issuer_indices(self, model):
         """Registry index of each template's issuer in ``model``."""
@@ -369,29 +428,223 @@ class Stream:
         return data, length, tof, counters
 
 
-# -- phase 3: the main path --------------------------------------------
+# -- phase 3: the walker kernel against its plain version --------------
+
+PROBE_REPLACES = (119, 127, 137, 147, 166, 183, 197, 223, 247, 361)
+
+
+def reset_counts() -> None:
+    from ct_mapreduce_tpu_torch.ops import der_kernel_cuda, sha256_cuda
+    from ct_mapreduce_tpu_torch.tools import mosaic_probe
+
+    sha256_cuda.LAUNCHES = 0
+    der_kernel_cuda.LAUNCHES = 0
+    mosaic_probe.LAUNCHES[:] = [0] * len(mosaic_probe.LAUNCHES)
+
+
+def read_counts() -> dict:
+    from ct_mapreduce_tpu_torch.ops import der_kernel_cuda, sha256_cuda
+    from ct_mapreduce_tpu_torch.tools import mosaic_probe
+
+    return {"sha256_fp": sha256_cuda.LAUNCHES,
+            "der_walk": der_kernel_cuda.LAUNCHES,
+            "probe": list(mosaic_probe.LAUNCHES)}
+
+
+def _max_abs_err(got, want) -> int:
+    import torch
+
+    if got.numel() == 0:
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def walker_check(device, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from ct_mapreduce_tpu_torch.native import leafpack
+    from ct_mapreduce_tpu_torch.ops import der_kernel, der_kernel_cuda
+    from ct_mapreduce_tpu_torch.utils import dercases
+
+    stream = Stream(seed + 1, cn_filter=True)
+    n = 1 << BATCH_LOG2
+    data, length, _tof, _ctr = stream.batch(n, 0.5)
+    rng = np.random.default_rng(seed)
+    mut, mlen = dercases.mutate_rows(data[:65536], length[:65536], MUTANTS, rng)
+    cdata, clen = dercases.pack(dercases.crafted(), Stream.PAD)
+    rows = np.concatenate([data, mut, cdata])
+    lens = np.concatenate([length, mlen, clen])
+    d = torch.from_numpy(rows).to(device)
+    ln = torch.from_numpy(lens).to(device)
+    cn_k = der_kernel.MAX_FIXED_WINDOW_BYTES
+    err = 0
+    for scan, k in ((True, cn_k), (False, 0)):
+        got = der_kernel_cuda.walk(d, ln, scan, k)
+        want = der_kernel.walk_plain(d, ln, scan, k)
+        torch.cuda.synchronize()
+        pairs = [(getattr(got.parsed, f), getattr(want.parsed, f), f)
+                 for f in der_kernel.ParsedCerts._fields]
+        pairs += [(got.serials, want.serials, "serials"),
+                  (got.fits, want.fits, "fits"),
+                  (got.cn_window, want.cn_window, "cn_window")]
+        for g, w, name in pairs:
+            e = _max_abs_err(g, w)
+            err = max(err, e)
+            check(torch.equal(g, w), f"walker kernel != plain version in "
+                  f"{name} (scan_issuer_cn={scan}, max abs err {e})")
+        if scan:
+            full = got
+    ok = full.parsed.ok.cpu().numpy()
+    m = n + MUTANTS  # stream rows and mutants: every length inside the row
+    sc = leafpack.extract_sidecars(rows[:m], lens[:m])
+    native = {"ok": "ok", "serial_off": "serial_off", "serial_len": "serial_len",
+              "not_after_hour": "not_after_hour", "is_ca": "is_ca",
+              "has_crldp": "has_crldp", "issuer_cn_off": "cn_off",
+              "issuer_cn_len": "cn_len", "issuer_off": "issuer_off",
+              "issuer_len": "issuer_len", "spki_off": "spki_off",
+              "spki_len": "spki_len", "crldp_off": "crldp_off",
+              "crldp_len": "crldp_len"}
+    for f, g in native.items():
+        mine = getattr(full.parsed, f).cpu().numpy()[:m]
+        if f == "issuer_cn_off":  # the native walker zeroes it on !ok
+            mine = np.where(ok[:m], mine, 0)
+        check(np.array_equal(mine.astype(np.int64),
+                             getattr(sc, g).astype(np.int64)),
+              f"walker kernel != native scalar walker in {f}")
+    n_ok = int(ok[:n].sum())
+    mut_ok = int(ok[n:m].sum())
+    check(n_ok == n, "a stream row was rejected by the walker")
+
+    # Timing and bound on the stream rows, as the main path calls it.
+    ds, ls = d[:n], ln[:n]
+    kernel_ms, plain_ms = [], []
+    for _ in range(2):
+        kernel_ms += cuda_times(lambda: der_kernel_cuda.walk(ds, ls, True, cn_k),
+                                TIMED_REPS, KERNEL_CALLS_PER_TIMING)
+        plain_ms += cuda_times(lambda: der_kernel.walk_plain(ds, ls, True, cn_k),
+                               PLAIN_REPS, warmup=1)
+    sectors = reads = 0
+    for lo in range(0, n, FOOTPRINT_CHUNK):
+        sec, rd = der_kernel.footprint(ds[lo:lo + FOOTPRINT_CHUNK],
+                                       ls[lo:lo + FOOTPRINT_CHUNK], True, cn_k)
+        sectors += int(sec.sum())
+        reads += int(rd.sum())
+    out_bytes = n * (len(der_kernel_cuda.FIELDS) * 4 + len(der_kernel_cuda.FLAGS)
+                     + 46 + cn_k)
+    bytes_moved = sectors * 32 + n * 4 + out_bytes
+    byte_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    op_ms = reads * OPS_PER_BYTE_READ / INT32_OPS_PER_S * 1e3
+    k_ms, p_ms = median(kernel_ms), median(plain_ms)
+    out = {"rows": int(rows.shape[0]), "stream_rows": n, "mutants": MUTANTS,
+           "crafted": int(cdata.shape[0]), "mutants_ok": mut_ok,
+           "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+           "kernel_ms_min": min(kernel_ms), "kernel_ms_max": max(kernel_ms),
+           "sectors_per_lane": sectors / n, "reads_per_lane": reads / n,
+           "bytes_moved": bytes_moved, "bytes_bound_ms": byte_ms,
+           "ops_bound_ms": op_ms, "bound_ms": max(byte_ms, op_ms),
+           "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+    out["share_of_bound"] = out["bound_ms"] / k_ms
+    print(f"phase 3: walker kernel == plain on {out['rows']} rows (2^20 "
+          f"stream, {MUTANTS} mutants of which {mut_ok} accepted, "
+          f"{out['crafted']} crafted), == native walker on {m}; kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {out['bound_ms']:.4f} "
+          f"ms ({out['bound_by']}; {sectors / n:.1f} sectors, "
+          f"{reads / n:.0f} byte reads a lane), {out['share_of_bound']:.1%} "
+          f"of bound", flush=True)
+    return out
+
+
+# -- phase 4: the probe ladder -------------------------------------------
+
+def probe_check(device, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from ct_mapreduce_tpu_torch.tools import mosaic_probe as mp
+
+    reset_counts()
+    rc = mp.main(["--device", "cuda"])
+    ladder = read_counts()
+    check(rc == 0, "the probe ladder failed on the card")
+    n = mp.TIMED_TILES * mp.LANES
+    stages = []
+    for stage, name in enumerate(mp.STAGES):
+        words, expected = mp.stage_inputs(stage, n, seed)
+        w = mp.to_tensor(words, device)
+        got = mp.kernel_stage(stage, w)
+        want = mp.plain_stage(stage, w)
+        err = _max_abs_err(got, want)
+        check(torch.equal(got, want),
+              f"probe stage {name} != plain at {n} lanes (max abs err {err})")
+        if expected is not None:
+            check(np.array_equal(got.cpu().numpy(), expected),
+                  f"probe stage {name} != host parser at {n} lanes")
+        k_ms = mp.time_stage(stage, w, TIMED_REPS, KERNEL_CALLS_PER_TIMING)
+        p_ms = cuda_times(lambda: mp.plain_stage(stage, w), PLAIN_REPS, warmup=1)
+        lib_ms = None
+        if stage in (0, 5):  # a masked sum is one library reduction
+
+            def lib():
+                return torch.sum(w & 0xFF, dim=0, keepdim=True,
+                                 dtype=torch.int32)
+
+            check(torch.equal(lib(), got), f"torch.sum != stage {name}")
+            lib_ms = median(cuda_times(lib, TIMED_REPS, KERNEL_CALLS_PER_TIMING))
+        words_read = reads = 0
+        for lo in range(0, n, FOOTPRINT_CHUNK):
+            wr, rd = mp.footprint(stage, w[:, lo:lo + FOOTPRINT_CHUNK])
+            words_read += int(wr.sum())
+            reads += int(rd.sum())
+        byte_ms = (words_read * 4 + n * 4) / HBM_BYTES_PER_S * 1e3
+        op_ms = reads * OPS_PER_BYTE_READ / INT32_OPS_PER_S * 1e3
+        st = {"name": name, "lanes": n, "max_abs_err": err,
+              "kernel_ms": median(k_ms), "kernel_ms_min": min(k_ms),
+              "kernel_ms_max": max(k_ms), "plain_ms": median(p_ms),
+              "library_ms": lib_ms, "words_per_lane": words_read / n,
+              "reads_per_lane": reads / n, "bytes_bound_ms": byte_ms,
+              "ops_bound_ms": op_ms, "bound_ms": max(byte_ms, op_ms),
+              "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+              "ladder_launches": ladder["probe"][stage]}
+        stages.append(st)
+        print(f"phase 4: probe {name} == plain at {n} lanes; kernel "
+              f"{st['kernel_ms']:.4f} ms, plain {st['plain_ms']:.3f} ms, "
+              f"bound {st['bound_ms']:.4f} ms ({st['bound_by']})"
+              + (f", torch.sum {lib_ms:.4f} ms" if lib_ms else ""), flush=True)
+    return {"ladder_launches": ladder, "stages": stages}
+
+
+# -- phases 5 and 6: the two lanes over the same batches -----------------
 
 class StageTimes:
-    """Host-clock time of the layers of ``IngestModel.ingest_packed``:
-    sidecar extraction, the device step (synchronised before and after,
-    so it holds the copies in and every kernel of the step) and the
-    host fold (readback, filters, metadata, host lane). What is left of
-    a call is the host's routing plan."""
+    """Host-clock time of the layers of ``IngestModel.ingest_packed``.
+    Walker lane: the device step (synchronised before and after, so it
+    holds the copies in and every kernel of the step), the fold
+    (``_consume_out``: readbacks, filters, per-lane serials, metadata)
+    and the exact host lane. Pre-parsed lane: sidecar extraction, the
+    device step and the fold (its host lane included). What is left of
+    a call is the host's chunking and routing plan."""
 
     def __init__(self, model) -> None:
         from ct_mapreduce_tpu_torch.models import ingest_model
 
-        self.times = {"sidecar": [], "device_step": [], "fold": []}
-        self._mod = ingest_model.leafpack
-        self._extract = self._mod.extract_sidecars
-        self._mod.extract_sidecars = self._wrap("sidecar", self._extract)
         agg = model.aggregator
-        agg._device_step_preparsed = self._wrap(
-            "device_step", agg._device_step_preparsed, sync=True)
-        agg._fold_preparsed = self._wrap("fold", agg._fold_preparsed)
+        self.times: dict[str, list[float]] = {}
+        self._undo = []
+        if model.preparsed:
+            self._patch(ingest_model.leafpack, "extract_sidecars", "sidecar")
+            self._patch(agg, "_device_step_preparsed", "device_step", True)
+            self._patch(agg, "_fold_preparsed", "fold")
+        else:
+            self._patch(agg, "_device_step_packed", "device_step", True)
+            self._patch(agg, "_consume_out", "fold")
+            self._patch(agg, "_host_lanes", "host_lane")
 
-    def _wrap(self, name, fn, sync=False):
+    def _patch(self, obj, attr: str, name: str, sync: bool = False) -> None:
         import torch
+
+        fn = getattr(obj, attr)
+        times = self.times.setdefault(name, [])
 
         def run(*args, **kwargs):
             if sync:
@@ -400,32 +653,61 @@ class StageTimes:
             out = fn(*args, **kwargs)
             if sync:
                 torch.cuda.synchronize()
-            self.times[name].append(time.perf_counter() - t0)
+            times.append(time.perf_counter() - t0)
             return out
-        return run
+
+        setattr(obj, attr, run)
+        self._undo.append((obj, attr, fn))
 
     def close(self) -> dict:
-        self._mod.extract_sidecars = self._extract
+        for obj, attr, fn in self._undo:
+            setattr(obj, attr, fn)
         return self.times
 
 
-def _config(batch_log2: int, table_bits: int):
+def _config(batch_log2: int, table_bits: int, preparsed: bool,
+            prefixes: tuple[str, ...] = ()):
     from ct_mapreduce_tpu_torch.config import CTConfig
 
-    return CTConfig(preparsed_ingest=True, batch_size=1 << batch_log2,
-                    table_bits=table_bits)
+    return CTConfig(preparsed_ingest=preparsed, batch_size=1 << batch_log2,
+                    table_bits=table_bits,
+                    issuer_cn_filter=",".join(prefixes))
 
 
-def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
-              table_bits: int, replay: float) -> dict:
+def _oracle_snapshot(stream: Stream, seen):
+    """Drained counts, CRL and DN sets of the serials ``seen``."""
     import numpy as np
 
     from ct_mapreduce_tpu_torch.core.types import ExpDate
-    from ct_mapreduce_tpu_torch.models.ingest_model import IngestModel
-    from ct_mapreduce_tpu_torch.ops import sha256_cuda
 
-    model = IngestModel.from_config(_config(batch_log2, table_bits),
-                                    device=device)
+    counts: dict = {}
+    crls: dict = {}
+    dns: dict = {}
+    per_tpl = np.bincount(stream.template_of[np.nonzero(seen)[0]],
+                          minlength=len(stream.templates))
+    for t, c in enumerate(per_tpl):
+        if c == 0:
+            continue
+        tr = stream.truth[t]
+        key = (tr["issuer"], ExpDate.from_unix_hour(tr["hour"]).id())
+        counts[key] = counts.get(key, 0) + int(c)
+        crls.setdefault(tr["issuer"], set()).update(tr["crls"])
+        dns.setdefault(tr["issuer"], set()).add(tr["dn"])
+    return counts, crls, dns
+
+
+def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
+              table_bits: int, replay: float, preparsed: bool) -> dict:
+    """One lane through ``IngestModel.ingest_packed`` over ``n_batches``
+    of ``stream``, every batch and the drain held to the oracle."""
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch.models.ingest_model import IngestModel
+
+    lane = "preparsed" if preparsed else "walker"
+    model = IngestModel.from_config(
+        _config(batch_log2, table_bits, preparsed, stream.cn_prefixes()),
+        device=device)
     agg = model.aggregator
     idx_of = stream.issuer_indices(model)
     cap0 = agg.capacity
@@ -433,7 +715,7 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
     seen = np.zeros((stream.next_counter + n_batches * n + 1,), bool)
     step_s, gen_s = [], []
     stages = StageTimes(model)
-    sha256_cuda.LAUNCHES = 0
+    reset_counts()
     for _ in range(n_batches):
         t0 = time.perf_counter()
         data, length, tof, ctr = stream.batch(n, replay)
@@ -451,36 +733,28 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
         want[cand[~seen[ctr[cand]]]] = True
         seen[ctr[passing]] = True
         check(np.array_equal(res.was_unknown, want),
-              f"was_unknown differs from the oracle on "
+              f"{lane}: was_unknown differs from the oracle on "
               f"{int((res.was_unknown != want).sum())} lanes")
-        check(np.array_equal(res.filtered, ~passing), "filter verdicts differ")
-    launches = sha256_cuda.LAUNCHES
+        check(np.array_equal(res.filtered, ~passing),
+              f"{lane}: filter verdicts differ")
+    launches = read_counts()
     stage_s = stages.close()
-    check(launches > 0, "the fingerprint kernel never ran on the main path")
-    check(agg.capacity > cap0, "no table grow happened on the main path")
+    check(launches["sha256_fp"] > 0,
+          f"{lane}: the fingerprint kernel never ran on the main path")
+    check(preparsed or launches["der_walk"] > 0,
+          "walker: the walker kernel never ran on the main path")
+    check(agg.capacity > cap0, f"{lane}: no table grow on the main path")
 
     snap = model.drain()
-    counts: dict = {}
-    crls: dict = {}
-    dns: dict = {}
-    counters = np.nonzero(seen)[0]
-    per_tpl = np.bincount(stream.template_of[counters],
-                          minlength=len(stream.templates))
-    for t, c in enumerate(per_tpl):
-        if c == 0:
-            continue
-        tr = stream.truth[t]
-        key = (tr["issuer"], ExpDate.from_unix_hour(tr["hour"]).id())
-        counts[key] = counts.get(key, 0) + int(c)
-        crls.setdefault(tr["issuer"], set()).update(tr["crls"])
-        dns.setdefault(tr["issuer"], set()).add(tr["dn"])
-    check(snap.counts == counts, "drained counts differ from the oracle")
-    check(snap.crls == crls, "drained CRL sets differ from the oracle")
-    check(snap.dns == dns, "drained DN sets differ from the oracle")
-    check(snap.total == int(seen.sum()), "drained total differs")
+    counts, crls, dns = _oracle_snapshot(stream, seen)
+    check(snap.counts == counts, f"{lane}: drained counts differ from the oracle")
+    check(snap.crls == crls, f"{lane}: drained CRL sets differ from the oracle")
+    check(snap.dns == dns, f"{lane}: drained DN sets differ from the oracle")
+    check(snap.total == int(seen.sum()), f"{lane}: drained total differs")
     entries = n_batches * n
     out = {
-        "batches": n_batches, "batch": n, "entries": entries,
+        "lane": lane, "batches": n_batches, "batch": n, "entries": entries,
+        "cn_prefixes": list(stream.cn_prefixes()),
         "unique_serials": int(seen.sum()), "launches": launches,
         "capacity_start": cap0, "capacity_end": agg.capacity,
         "ingest_s_per_batch": step_s, "gen_s_per_batch": gen_s,
@@ -488,19 +762,20 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
         "entries_per_s": entries / sum(step_s),
         "device_share": sum(stage_s["device_step"]) / sum(step_s),
         "metrics": dict(agg.metrics),
+        "snapshot": snap,
     }
-    print(f"phase 3: {entries} entries in {n_batches} batches of {n}, "
-          f"{out['unique_serials']} unique; drain == oracle; table "
-          f"{cap0} -> {agg.capacity} slots; {launches} kernel launches; "
-          f"{out['entries_per_s']:.0f} entries/s through ingest_packed "
-          f"(median {median(step_s):.3f} s/batch: sidecars "
-          f"{median(stage_s['sidecar']):.3f}, device step "
-          f"{median(stage_s['device_step']):.3f}, fold "
-          f"{median(stage_s['fold']):.3f})", flush=True)
+    parts = ", ".join(f"{k} {median(v):.3f}" for k, v in stage_s.items() if v)
+    print(f"{lane} lane: {entries} entries in {n_batches} batches of {n}, "
+          f"{out['unique_serials']} unique, {agg.metrics['host_lane']} host-"
+          f"lane lanes; drain == oracle; table {cap0} -> {agg.capacity} "
+          f"slots; launches {launches['sha256_fp']} K1, "
+          f"{launches['der_walk']} K3; {out['entries_per_s']:.0f} entries/s "
+          f"through ingest_packed (median {median(step_s):.3f} s/batch: "
+          f"{parts})", flush=True)
     return out
 
 
-# -- phase 4: state at a deployment's scale ----------------------------
+# -- phase 7: state at a deployment's scale ----------------------------
 
 def deployment_state(device, stream: Stream, table_bits: int,
                      batch_log2: int, fill: float, seed: int) -> dict:
@@ -509,10 +784,11 @@ def deployment_state(device, stream: Stream, table_bits: int,
 
     from ct_mapreduce_tpu_torch.core import packing
     from ct_mapreduce_tpu_torch.models.ingest_model import IngestModel
-    from ct_mapreduce_tpu_torch.ops import buckettable, sha256_cuda
+    from ct_mapreduce_tpu_torch.ops import buckettable
 
-    model = IngestModel.from_config(_config(batch_log2, table_bits),
-                                    device=device)
+    model = IngestModel.from_config(
+        _config(batch_log2, table_bits, True, stream.cn_prefixes()),
+        device=device)
     agg = model.aggregator
     idx_of = stream.issuer_indices(model)
     n = 1 << batch_log2
@@ -537,11 +813,11 @@ def deployment_state(device, stream: Stream, table_bits: int,
 
     data, length, tof, ctr = stream.batch(n, 0.5, within_batch_only=True)
     stages = StageTimes(model)
-    sha256_cuda.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = model.ingest_packed(data, length, idx_of[tof], np.ones((n,), bool))
     step_s = time.perf_counter() - t0
-    launches = sha256_cuda.LAUNCHES
+    launches = read_counts()["sha256_fp"]
     stage_s = stages.close()
     check(launches > 0, "the fingerprint kernel never ran on the big table")
     passing = ~stream.filtered[tof]
@@ -568,7 +844,7 @@ def deployment_state(device, stream: Stream, table_bits: int,
         "stage_s": stage_s,
         "launches": launches, "overflow": agg.metrics["overflow"],
     }
-    print(f"phase 4: {out['buckets']} buckets ({out['table_bytes']} B), "
+    print(f"phase 7: {out['buckets']} buckets ({out['table_bytes']} B), "
           f"{out['prefill_keys']} keys prefilled in {prefill_s:.2f} s "
           f"(load {load:.3f}); batch of {n} in {step_s:.3f} s (device "
           f"step {stage_s['device_step'][0]:.3f} s); "
@@ -596,8 +872,8 @@ def device_busy(trace_path: str) -> tuple[float, dict]:
 
 
 def profile_step(device, stream: Stream, batch_log2: int, table_bits: int,
-                 out_dir: str) -> dict:
-    """torch.profiler over one warm main-path batch: device time by
+                 preparsed: bool, out_dir: str) -> dict:
+    """torch.profiler over one warm batch of a lane: device time by
     kernel, and the device's busy share of the call's wall time."""
     import numpy as np
     import torch
@@ -605,8 +881,10 @@ def profile_step(device, stream: Stream, batch_log2: int, table_bits: int,
 
     from ct_mapreduce_tpu_torch.models.ingest_model import IngestModel
 
-    model = IngestModel.from_config(_config(batch_log2, table_bits),
-                                    device=device)
+    lane = "preparsed" if preparsed else "walker"
+    model = IngestModel.from_config(
+        _config(batch_log2, table_bits, preparsed, stream.cn_prefixes()),
+        device=device)
     idx_of = stream.issuer_indices(model)
     n = 1 << batch_log2
     batches = [stream.batch(n, 0.5) for _ in range(2)]
@@ -621,21 +899,68 @@ def profile_step(device, stream: Stream, batch_log2: int, table_bits: int,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "ingest_step_trace.json")
+    path = os.path.join(out_dir, f"{lane}_step_trace.json")
     prof.export_chrome_trace(path)
     busy_us, by_kernel = device_busy(path)
     busy_s = busy_us / 1e6
     rows = sorted(((t, k, c) for k, (t, c) in by_kernel.items()),
                   reverse=True)
-    out = {"wall_s": wall, "device_busy_s": busy_s,
+    out = {"lane": lane, "wall_s": wall, "device_busy_s": busy_s,
            "device_idle_share": 1.0 - busy_s / wall,
            "top_device_us": [[k, round(t, 1), c] for t, k, c in rows[:15]],
-           "k1_device_us": [v for k, v in by_kernel.items()
-                            if "sha256_fp" in k]}
-    print(f"profile: one batch of {n}: wall {wall:.3f} s, device busy "
-          f"{busy_s:.4f} s (idle share {out['device_idle_share']:.3f})",
+           "kernel_device_us": {name: [v for k, v in by_kernel.items()
+                                       if name in k]
+                                for name in ("sha256_fp", "der_walk")}}
+    print(f"profile {lane}: one batch of {n}: wall {wall:.3f} s, device "
+          f"busy {busy_s:.4f} s (idle share {out['device_idle_share']:.3f})",
           flush=True)
     return out
+
+
+def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
+                 preparsed: dict) -> dict:
+    """The ``{"kernels": [...]}`` record: every kernel of the port with
+    its launches on each main path and this run's measurements."""
+    from ct_mapreduce_tpu_torch.tools import mosaic_probe as mp
+
+    paths = {"walker": walker["launches"], "preparsed": preparsed["launches"],
+             "probe": probe["ladder_launches"]}
+
+    def by_path(key, i=None):
+        return {p: (c[key] if i is None else c[key][i]) for p, c in paths.items()}
+
+    rows = [{
+        "name": "sha256_fp", "route": "cuda",
+        "source": "ct_mapreduce_tpu_torch/csrc/sha256_fp.cu",
+        "replaces": "ct_mapreduce_tpu/ops/pallas_sha256.py:68",
+        "launches": paths["walker"]["sha256_fp"],
+        "launches_by_path": by_path("sha256_fp"),
+        "max_abs_err": k1["max_abs_err"], "ms": k1["kernel_ms"],
+        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": None,
+    }, {
+        "name": "der_walk", "route": "cuda",
+        "source": "ct_mapreduce_tpu_torch/csrc/der_walk.cu",
+        "replaces": "ct_mapreduce_tpu/ops/der_kernel.py:650",
+        "launches": paths["walker"]["der_walk"],
+        "launches_by_path": by_path("der_walk"),
+        "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": None,
+    }]
+    for i, st in enumerate(probe["stages"]):
+        rows.append({
+            "name": f"probe_{st['name']}", "route": "cuda",
+            "source": "ct_mapreduce_tpu_torch/csrc/mosaic_probe.cu",
+            "replaces": f"tools/mosaic_probe.py:{PROBE_REPLACES[i]}",
+            "launches": paths["probe"]["probe"][i],
+            "launches_by_path": by_path("probe", i),
+            "max_abs_err": st["max_abs_err"], "ms": st["kernel_ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"], "library_ms": st["library_ms"],
+        })
+    check(len(rows) == 2 + len(mp.STAGES), "a kernel is missing from the line")
+    return {"kernels": rows}
 
 
 def main(argv=None) -> int:
@@ -643,12 +968,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=20261017,
                     help="seed of every input the run makes")
     ap.add_argument("--profile", default="",
-                    help="also profile one main-path batch with "
-                         "torch.profiler; the trace goes to this directory")
+                    help="also profile one batch of each lane with "
+                         "torch.profiler; the traces go to this directory")
     ap.add_argument("--sass", default="",
-                    help="also report the fingerprint kernel's registers "
+                    help="also report each kernel library's registers "
                          "(-Xptxas -v) and SASS opcode counts (cuobjdump); "
-                         "both outputs go to this directory")
+                         "the outputs go to this directory")
+    ap.add_argument("--out", default="",
+                    help="also write the run's full details as JSON here")
     args = ap.parse_args(argv)
 
     import torch
@@ -669,39 +996,43 @@ def main(argv=None) -> int:
     card = card_line()
     print(card, flush=True)
     builds = build_all()
-    print(f"phase 1: built the fingerprint kernel in "
-          f"{builds['k1_build_s']:.1f} s and the native decoder in "
-          f"{builds['native_build_s']:.1f} s", flush=True)
+    print("phase 1: built " + ", ".join(
+        f"{k[:-8]} in {v:.1f} s" for k, v in builds.items()), flush=True)
 
     sass = sass_report(args.sass) if args.sass else None
     k1 = kernel_check(device, 1 << BATCH_LOG2, args.seed, TIMED_REPS)
-    stream = Stream(args.seed)
-    main_out = main_path(device, stream, MAIN_BATCHES, BATCH_LOG2,
-                         TABLE_BITS, replay=0.5)
+    k3 = walker_check(device, args.seed)
     torch.cuda.empty_cache()
-    big = deployment_state(device, stream, BIG_TABLE_BITS, BATCH_LOG2, 0.5,
-                           args.seed)
-    prof = (profile_step(device, stream, BATCH_LOG2, TABLE_BITS,
-                         args.profile) if args.profile else None)
-    print(json.dumps({"card": card, "builds": builds, "fingerprint": k1,
-                      "main_path": main_out, "big_table": big,
-                      "profile": prof, "sass": sass,
-                      "wall_s": time.perf_counter() - t_start}), flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "sha256_fp",
-        "route": "cuda",
-        "source": "ct_mapreduce_tpu_torch/csrc/sha256_fp.cu",
-        "replaces": "ct_mapreduce_tpu/ops/pallas_sha256.py:68",
-        "launches": main_out["launches"],
-        "max_abs_err": k1["max_abs_err"],
-        "match": k1["match"],
-        "ms": k1["kernel_ms"],
-        "kernel_ms": k1["kernel_ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": None,
-    }]}), flush=True)
+    probe = probe_check(device, args.seed)
+    torch.cuda.empty_cache()
+    lanes = {}
+    for preparsed in (False, True):  # the same batches through each lane
+        out = main_path(device, Stream(args.seed, cn_filter=True),
+                        MAIN_BATCHES, BATCH_LOG2, TABLE_BITS, 0.5, preparsed)
+        lanes[out["lane"]] = out
+        torch.cuda.empty_cache()
+    check(lanes["walker"].pop("snapshot") == lanes["preparsed"].pop("snapshot"),
+          "the walker lane's drain differs from the pre-parsed lane's")
+    print("phase 6: the walker and pre-parsed lanes drain the same", flush=True)
+    big = deployment_state(device, Stream(args.seed), BIG_TABLE_BITS,
+                           BATCH_LOG2, 0.5, args.seed)
+    prof = None
+    if args.profile:
+        torch.cuda.empty_cache()
+        prof = [profile_step(device, Stream(args.seed, cn_filter=True),
+                             BATCH_LOG2, TABLE_BITS, pre, args.profile)
+                for pre in (False, True)]
+    details = {"card": card, "builds": builds, "fingerprint": k1,
+               "walker_kernel": k3, "probe": probe, "lanes": lanes,
+               "big_table": big, "profile": prof, "sass": sass,
+               "wall_s": time.perf_counter() - t_start}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(details, f, indent=1)
+    print(json.dumps(details), flush=True)
+    print(json.dumps(kernels_line(k1, k3, probe, lanes["walker"],
+                                  lanes["preparsed"])), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

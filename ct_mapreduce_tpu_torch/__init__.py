@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of ct_mapreduce_tpu's pre-parsed ingest path.
+"""PyTorch/CUDA port of ct_mapreduce_tpu's ingest paths (the walker lane
+and the pre-parsed lane) on one device.
 
 The JAX package (``ct_mapreduce_tpu``) is the reference; this package
 imports nothing from it and keeps its module names, so each module's

@@ -1,15 +1,17 @@
 """The device reduce state and its exact host fallback lane (port of
-the pre-parsed half of ``ct_mapreduce_tpu.agg.aggregator``).
+``ct_mapreduce_tpu.agg.aggregator`` for one device).
 
 :class:`TorchAggregator` replaces the Redis-resident reduce state of
 the reference (serial dedup sets, per-issuer CRL/DN sets, reference
 storage/knowncertificates.go, storage/issuermetadata.go) with:
 
 - a device-resident bucket dedup table (:mod:`..ops.buckettable`)
-  driven by the pre-parsed step (:mod:`..ops.pipeline`),
+  driven by the walker step or the pre-parsed step
+  (:mod:`..ops.pipeline`),
 - a host-side issuer registry mapping SHA-256(SPKI) identities to the
   dense indices the device ops use,
-- host-side CRL/DN string sets fed by the sidecar's byte windows,
+- host-side CRL/DN string sets fed by the walker's (or the sidecar's)
+  byte windows,
 - an **exact host lane** for every lane the device cannot take exactly
   (walker reject / oversized serial / meta range / boundary hour /
   undecidable CN prefix / probe overflow), preserving the reference's
@@ -19,11 +21,12 @@ storage/knowncertificates.go, storage/issuermetadata.go) with:
 Exactness across the two dedup domains rests on the same cross-domain
 guards as the JAX package: the host lane probes device membership
 before counting (`_device_known_flags`), the device fold checks the
-host sets on unknown lanes (`_fold_preparsed`), and `drain()`
-subtracts the host∩device overlap in one batched probe.
+host sets on unknown lanes (`_consume_out`, `_fold_preparsed`), and
+`drain()` subtracts the host∩device overlap in one batched probe.
 
-Left out of this slice: the walker lane, checkpoints, filter capture,
-signature verification and the ingest sink's overlap threads.
+Left out so far: the staged multi-chunk walker lane, checkpoints,
+filter capture, signature verification and the ingest sink's overlap
+threads.
 """
 
 from __future__ import annotations
@@ -141,19 +144,19 @@ class _PreparsedPlan:
     flag_cap: int
 
 
-class PendingPreparsed:
-    """The blocking half of :meth:`TorchAggregator.ingest_preparsed_submit`:
-    the device work is queued on the stream; ``complete()`` reads the
-    packed result back and folds it. Completion is FIFO and claimed
-    before the fold, so a fold that raises is never re-applied."""
+class _Pending:
+    """A submitted ingest whose device work is queued on the stream;
+    ``complete()`` reads the results back and folds them. Completion
+    is FIFO and claimed before the fold, so a fold that raises is never
+    re-applied."""
 
-    def __init__(self, agg: "TorchAggregator", out, plan: _PreparsedPlan,
-                 res: IngestResult) -> None:
+    def __init__(self, agg: "TorchAggregator", res: IngestResult) -> None:
         self._agg = agg
-        self._out = out  # pipeline.PreparsedStepOut
-        self._plan = plan
         self._res = res
         self._done = False
+
+    def _fold(self) -> None:
+        raise NotImplementedError
 
     def complete(self) -> IngestResult:
         if self._done:
@@ -164,9 +167,50 @@ class PendingPreparsed:
             agg._outstanding.remove(self)
         agg._inflight_lanes = max(
             0, agg._inflight_lanes - len(self._res.was_unknown))
-        agg._fold_preparsed(self._out, self._plan, self._res)
+        self._fold()
         incr_counter("aggregator", "batches")
         return self._res
+
+
+class PendingIngest(_Pending):
+    """The blocking half of :meth:`TorchAggregator.ingest_packed_submit`:
+    every chunk's walker step is queued; ``complete()`` reads each
+    chunk's packed outputs back, folds them and runs the exact host
+    lane."""
+
+    def __init__(self, agg: "TorchAggregator", chunks, res: IngestResult,
+                 data: np.ndarray, length: np.ndarray) -> None:
+        super().__init__(agg, res)
+        self._chunks = chunks  # [(batch, device_pos, lanes, out)]
+        self._data = data
+        self._length = length
+
+    def _fold(self) -> None:
+        agg, res = self._agg, self._res
+        host_lane_total = 0
+        for batch, device_pos, lanes, out in self._chunks:
+            host_pos = agg._consume_out(batch, out, device_pos, res, lanes,
+                                        host_rows=self._data)
+            host_lane_total += agg._host_lanes(
+                host_pos,
+                lambda pos: self._data[pos, : self._length[pos]].tobytes(),
+                res)
+        agg.metrics["host_lane"] += host_lane_total
+        res.host_lane_count = host_lane_total
+
+
+class PendingPreparsed(_Pending):
+    """The blocking half of :meth:`TorchAggregator.ingest_preparsed_submit`:
+    ``complete()`` reads the step's one packed array back and folds it."""
+
+    def __init__(self, agg: "TorchAggregator", out, plan: _PreparsedPlan,
+                 res: IngestResult) -> None:
+        super().__init__(agg, res)
+        self._out = out  # pipeline.PreparsedStepOut
+        self._plan = plan
+
+    def _fold(self) -> None:
+        self._agg._fold_preparsed(self._out, self._plan, self._res)
 
 
 @dataclass
@@ -177,6 +221,23 @@ class AggregateSnapshot:
     crls: dict[str, set[str]]  # issuerID → CRL DP URLs
     dns: dict[str, set[str]]  # issuerID → issuer DN strings
     total: int = 0
+
+
+def _pack_out(out: pipeline.StepOut) -> torch.Tensor:
+    """A walker step's small per-lane outputs as ONE int32[7, B] tensor,
+    so the host pays one device-to-host copy for them: row 0 the flag
+    word (host_lane | was_unknown<<1 | filtered_ca<<2 |
+    filtered_expired<<3 | filtered_cn<<4 | probe_overflow<<5), rows 1-6
+    not_after_hour, serial_len, crldp_off, crldp_len, issuer_name_off,
+    issuer_name_len (the JAX aggregator's layout)."""
+    flags = torch.zeros_like(out.not_after_hour)
+    for bit, f in enumerate((out.host_lane, out.was_unknown,
+                             out.filtered_ca, out.filtered_expired,
+                             out.filtered_cn, out.probe_overflow)):
+        flags |= f.to(torch.int32) << bit
+    return torch.stack([flags, out.not_after_hour, out.serial_len,
+                        out.crldp_off, out.crldp_len, out.issuer_name_off,
+                        out.issuer_name_len], dim=0)
 
 
 class TorchAggregator:
@@ -227,8 +288,8 @@ class TorchAggregator:
         self._dn_raw_seen: set[tuple[int, bytes]] = set()
         # Device-side per-issuer unknown totals (running).
         self.issuer_totals = np.zeros((packing.MAX_ISSUERS,), np.int64)
-        # Submitted-but-not-completed ingests (FIFO).
-        self._outstanding: list[PendingPreparsed] = []
+        # Submitted-but-not-completed ingests of both lanes (FIFO).
+        self._outstanding: list[_Pending] = []
         # False until the first device step: lets the host lane skip
         # cross-domain membership probes for host-only usage.
         self._device_written = False
@@ -367,6 +428,8 @@ class TorchAggregator:
             arr[i, : len(head)] = np.frombuffer(head, np.uint8)
             lens[i] = (len(head), len(b))
         self._prefix_arr, self._prefix_lens = arr, lens
+        self._prefix_dev = torch.from_numpy(arr).to(self.device)
+        self._prefix_lens_dev = torch.from_numpy(lens).to(self.device)
 
     def _now_hour(self) -> int:
         now = self._fixed_now or datetime.now(timezone.utc)
@@ -378,6 +441,190 @@ class TorchAggregator:
         reader of aggregate state calls this first."""
         while self._outstanding:
             self._outstanding[0].complete()
+
+    def ingest(self, entries: list[tuple[bytes, bytes]]) -> IngestResult:
+        """Process (leaf_der, issuer_der) pairs through the walker lane;
+        any count, chunked to the device batch size. Leaves longer than
+        the largest length bucket take the exact host lane."""
+        n = len(entries)
+        res = IngestResult(
+            was_unknown=np.zeros((n,), bool),
+            filtered=np.zeros((n,), bool),
+            exp_hours=np.zeros((n,), np.int32),
+            serials=[None] * n,
+            issuer_idx=np.zeros((n,), np.int32),
+        )
+        for i, (_, issuer_der) in enumerate(entries):
+            res.issuer_idx[i] = self.registry.get_or_assign(issuer_der)
+
+        max_len = packing.LENGTH_BUCKETS[-1]
+        host_lane_total = 0
+        for start in range(0, n, self.batch_size):
+            chunk = entries[start : start + self.batch_size]
+            device_entries, device_pos, host_pos = [], [], []
+            for j, (der, _) in enumerate(chunk):
+                if len(der) <= max_len:
+                    device_entries.append((der, int(res.issuer_idx[start + j])))
+                    device_pos.append(start + j)
+                else:
+                    host_pos.append(start + j)
+            if device_entries:
+                self.maybe_grow(incoming=len(device_entries))
+                batch = packing.pack_entries(
+                    device_entries, batch_size=self.batch_size)
+                out = self._device_step_packed(batch)
+                host_pos += self._consume_out(
+                    batch, out, np.asarray(device_pos, np.int64), res,
+                    np.arange(len(device_pos), dtype=np.int64))
+            host_lane_total += self._host_lanes(
+                host_pos, lambda pos: entries[pos][0], res)
+        self.metrics["host_lane"] += host_lane_total
+        res.host_lane_count = host_lane_total
+        incr_counter("aggregator", "batches")
+        return res
+
+    def ingest_packed(self, data: np.ndarray, length: np.ndarray,
+                      issuer_idx: np.ndarray,
+                      valid: np.ndarray) -> IngestResult:
+        """Packed rows (``uint8[n, pad]`` DER, ``int32[n]`` lengths,
+        registry indices, validity) through the walker lane: submit +
+        complete."""
+        return self.ingest_packed_submit(data, length, issuer_idx,
+                                         valid).complete()
+
+    def ingest_packed_submit(self, data: np.ndarray, length: np.ndarray,
+                             issuer_idx: np.ndarray,
+                             valid: np.ndarray) -> PendingIngest:
+        """Queue the walker steps for a packed batch without reading
+        anything back: each chunk of ``batch_size`` rows is copied to
+        the device and stepped; ``complete()`` reads the results."""
+        n = int(data.shape[0])
+        length = np.asarray(length, np.int32)
+        valid = np.asarray(valid, bool)
+        self.maybe_grow(incoming=n)
+        self._inflight_lanes += n
+        res = IngestResult(
+            was_unknown=np.zeros((n,), bool),
+            filtered=np.zeros((n,), bool),
+            exp_hours=np.zeros((n,), np.int32),
+            serials=[None] * n,
+            issuer_idx=np.asarray(issuer_idx, np.int32).copy(),
+        )
+        chunks = []
+        b = self.batch_size
+        for start in range(0, n, b):
+            end = min(start + b, n)
+            m = end - start
+            if m == b:
+                batch = packing.PackedBatch(
+                    data[start:end], length[start:end],
+                    res.issuer_idx[start:end], valid[start:end])
+            else:  # pad the tail chunk to the batch width
+                def pad(a, dtype):
+                    out = np.zeros((b,) + a.shape[1:], dtype)
+                    out[:m] = a[start:end]
+                    return out
+                batch = packing.PackedBatch(
+                    pad(data, np.uint8), pad(length, np.int32),
+                    pad(res.issuer_idx, np.int32), pad(valid, bool))
+            lanes = np.nonzero(valid[start:end])[0].astype(np.int64)
+            out = self._device_step_packed(batch)
+            chunks.append((batch, lanes + start, lanes, out))
+        pending = PendingIngest(self, chunks, res, data, length)
+        self._outstanding.append(pending)
+        return pending
+
+    def _device_step_packed(self, batch: packing.PackedBatch):
+        """Queue one walker step on the table's device."""
+        self._device_written = True
+
+        def dev(a, dtype) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
+                self.device)
+
+        self.table, out = pipeline.ingest_core(
+            self.table, dev(batch.data, np.uint8),
+            dev(batch.length, np.int32), dev(batch.issuer_idx, np.int32),
+            dev(batch.valid, bool), self._now_hour(), self.base_hour,
+            self._prefix_dev, self._prefix_lens_dev,
+            max_probes=self.max_probes)
+        return out
+
+    def _consume_out(self, batch: packing.PackedBatch, out, device_pos,
+                     res: IngestResult, lanes, host_rows=None) -> list[int]:
+        """Read one walker step's outputs back (ONE packed int32[7, B]
+        copy, plus the counts and, when serials are wanted, the serial
+        window) and fold them into ``res`` at the global positions
+        ``device_pos`` (chunk lanes ``lanes``). ``host_rows`` is the
+        host copy of the rows by global position, used for metadata
+        windows instead of the batch. Returns the positions that must
+        take the exact host lane."""
+        P = _pack_out(out).cpu().numpy()  # the one per-lane readback
+        flags = P[0]
+        hl = (flags & 1) != 0
+        wu = ((flags >> 1) & 1) != 0
+        f_ca = ((flags >> 2) & 1) != 0
+        f_exp = ((flags >> 3) & 1) != 0
+        f_cn = ((flags >> 4) & 1) != 0
+        ovf = ((flags >> 5) & 1) != 0
+        nah, slen = P[1], P[2]
+        dp_off, dp_len, in_off, in_len = P[3], P[4], P[5], P[6]
+        f_any = f_ca | f_exp | f_cn
+        self.metrics["filtered_ca"] += int(f_ca.sum())
+        self.metrics["filtered_expired"] += int(f_exp.sum())
+        self.metrics["filtered_cn"] += int(f_cn.sum())
+        self.metrics["overflow"] += int(ovf.sum())
+        counts = out.issuer_unknown_counts.cpu().numpy().astype(np.int64)
+        self.issuer_totals[: counts.shape[0]] += counts
+
+        # True table-fill delta, taken before the cross-encoding guard
+        # below flips any was_unknown lane for reporting.
+        dev_inserted = int(wu.sum())
+        pos_arr = np.asarray(device_pos, np.int64)
+        lanes = np.asarray(lanes, np.int64)
+        hl_l = hl[lanes]
+        host_pos = [int(p) for p in pos_arr[hl_l]]
+        okm = ~hl_l
+        f_l = f_any[lanes]
+        res.filtered[pos_arr[okm]] = f_l[okm]
+        keep = okm & ~f_l
+        kp, kl = pos_arr[keep], lanes[keep]
+        res.exp_hours[kp] = nah[kl]
+        if self.want_serials:
+            sarr = out.serials.cpu().numpy()
+            for p_, l_ in zip(kp, kl):
+                sb = sarr[l_, : slen[l_]].tobytes()
+                res.serials[p_] = sb
+                if wu[l_]:
+                    key = (int(batch.issuer_idx[l_]), int(nah[l_]))
+                    if sb in self.host_serials.get(key, ()):
+                        # Cross-encoding guard (module docstring).
+                        wu[l_] = False
+                        self.issuer_totals[int(batch.issuer_idx[l_])] -= 1
+                    else:
+                        res.was_unknown[p_] = True
+        else:
+            res.was_unknown[kp[wu[kl]]] = True
+        ksel = np.nonzero(res.was_unknown[pos_arr])[0]
+        if ksel.size:
+            if host_rows is not None:
+                rows2d, row_sel = host_rows, pos_arr[ksel]
+                issuers = res.issuer_idx[pos_arr[ksel]]
+            else:
+                rows2d, row_sel = np.asarray(batch.data), lanes[ksel]
+                issuers = np.asarray(batch.issuer_idx)[lanes[ksel]]
+            lsel = lanes[ksel]
+            self._accumulate_metadata_lanes(
+                rows2d, row_sel, issuers,
+                dp_off[lsel], dp_len[lsel], in_off[lsel], in_len[lsel])
+        dev_unknown = int(wu.sum())
+        dev_known = len(pos_arr) - int(hl.sum()) - dev_unknown
+        self.metrics["inserted"] += dev_unknown
+        self.metrics["known"] += max(dev_known, 0)
+        self._table_fill += dev_inserted
+        set_gauge("aggregator", "table_load",
+                  value=self._table_fill / self.capacity)
+        return host_pos
 
     def ingest_preparsed(self, sidecar, issuer_idx, valid, host_rows,
                          length) -> IngestResult:

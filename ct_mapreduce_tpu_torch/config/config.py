@@ -22,7 +22,7 @@ from typing import Optional
 @dataclass
 class CTConfig:
     preparsed_ingest: bool = False  # host sidecar extraction + walker-free
-    # device step (the only lane the port has so far)
+    # device step; False (the default) runs the device DER walker
     log_expired_entries: bool = False
     issuer_cn_filter: str = ""
     batch_size: int = 65536

@@ -1,0 +1,219 @@
+// The probe ladder of tools/mosaic_probe.py as ten CUDA kernels, one
+// thread per lane.
+//
+// Replaces the Pallas stage kernels that tools/mosaic_probe.py::run_stage
+// and time_stage9 launch (k_elementwise ... k_serial_extract). On the TPU
+// the ladder bisected the Mosaic lowering of a Pallas DER walker, each
+// stage adding one construct. Here each stage adds one construct on the
+// way to the walker kernel K3 (der_walk.cu), and stages 1-9 are built
+// from K3's own device functions in der_walk.cuh: the byte read of a
+// source (LaneWords) and the long-form length decode (long_form_len).
+//
+// Layout, as in the original: words[64, lanes] big-endian uint32 (int32
+// bits) with lanes on the minor axis, so a warp reading word k of its
+// 32 lanes reads 128 consecutive bytes; out int32[1, lanes].
+//
+// What bounds them on an H100: bytes. Stages 0, 4 and 5 read every word
+// of a lane (256 B), the others one word per byte read; each does a few
+// integer operations a byte. Nothing is staged in shared memory: a
+// lane's words are read once each, coalesced across the warp.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "der_walk.cuh"
+
+namespace {
+
+using derwalk::LaneWords;
+
+constexpr int kWords = 64;
+constexpr int kRowBytes = kWords * 4;
+constexpr int kWrap = kRowBytes - 4;  // offsets wrap modulo 252
+constexpr int kThreads = 128;
+
+// _read_vec(w, off, clip=True): the offset clamped into the row.
+struct Clipped {
+  LaneWords src;
+  __device__ __forceinline__ int operator()(int q) const {
+    return src(q < 0 ? 0 : (q >= kRowBytes ? kRowBytes - 1 : q));
+  }
+};
+
+struct ProbeTlv {
+  int tag, hdr, content;
+};
+
+// The probe's TLV header: long form reads one length octet when the
+// count is 1 and two otherwise (K3 reads up to three).
+template <class Read>
+__device__ __forceinline__ ProbeTlv probe_tlv(const Read& read, int off) {
+  const int l0 = read(off + 1);
+  const bool long_form = l0 >= 0x80;
+  const int nlen = long_form ? (l0 & 0x7F) : 0;
+  const int l1 = read(off + 2), l2 = read(off + 3);
+  ProbeTlv t;
+  t.tag = read(off);
+  t.content = long_form ? derwalk::long_form_len(nlen == 1 ? 1 : 2, l1, l2, 0) : l0;
+  t.hdr = 2 + nlen;
+  return t;
+}
+
+__device__ __forceinline__ long long lane_id() {
+  return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+#define PROBE_KERNEL(name)                                                   \
+  __global__ void __launch_bounds__(kThreads)                                \
+      name(const uint32_t* __restrict__ w, long long lanes,                  \
+           int32_t* __restrict__ out)
+
+// Stage 0: elementwise + sum over the lane's words of (word & 0xFF).
+PROBE_KERNEL(k_elementwise) {
+  const long long lane = lane_id();
+  if (lane >= lanes) return;
+  int acc = 0;
+  for (int k = 0; k < kWords; ++k) acc += static_cast<int>(__ldg(w + k * lanes + lane) & 0xFFu);
+  out[lane] = acc;
+}
+
+// Stage 1: one byte read at a fixed offset.
+PROBE_KERNEL(k_onehot_read) {
+  const long long lane = lane_id();
+  if (lane >= lanes) return;
+  const LaneWords src{w + lane, lanes, kRowBytes};
+  out[lane] = src(17);
+}
+
+// Stage 2: one byte read at a data-dependent offset.
+PROBE_KERNEL(k_onehot_dyn) {
+  const long long lane = lane_id();
+  if (lane >= lanes) return;
+  const LaneWords src{w + lane, lanes, kRowBytes};
+  out[lane] = src(static_cast<int>(__ldg(w + lane) >> 24) % kWrap);
+}
+
+// Stage 3: 16 reads in a loop with a carried offset.
+PROBE_KERNEL(k_fori_reads) {
+  const long long lane = lane_id();
+  if (lane >= lanes) return;
+  const LaneWords src{w + lane, lanes, kRowBytes};
+  int off = 0, acc = 0;
+  for (int i = 0; i < 16; ++i) {
+    const int byte = src(off);
+    off = (off + 1 + (byte & 3)) % kWrap;
+    acc += byte;
+  }
+  out[lane] = acc;
+}
+
+// Stage 4: a masked reduction inside a loop.
+PROBE_KERNEL(k_fori_masked) {
+  const long long lane = lane_id();
+  if (lane >= lanes) return;
+  int acc = 0;
+  for (int i = 0; i < 8; ++i)
+    for (int k = 0; k < kWords; ++k) {
+      const uint32_t word = __ldg(w + k * lanes + lane);
+      if ((word >> 8) % 3u == static_cast<uint32_t>(i % 3)) acc += static_cast<int>(word & 0xFFu);
+    }
+  out[lane] = acc;
+}
+
+// Stage 5: the uint32 reduction (a TPU workaround; the same sum here).
+PROBE_KERNEL(k_uint_reduce) {
+  const long long lane = lane_id();
+  if (lane >= lanes) return;
+  uint32_t acc = 0;
+  for (int k = 0; k < kWords; ++k) acc += __ldg(w + k * lanes + lane) & 0xFFu;
+  out[lane] = static_cast<int32_t>(acc);
+}
+
+// Stage 6: a loop that ends early, at the first zero byte or 32 rounds.
+PROBE_KERNEL(k_while_early_exit) {
+  const long long lane = lane_id();
+  if (lane >= lanes) return;
+  const LaneWords src{w + lane, lanes, kRowBytes};
+  int off = 0;
+  for (int n = 0; n < 32; ++n) {
+    if (src(off) == 0) break;
+    off = (off + 1) % kWrap;
+  }
+  out[lane] = off;
+}
+
+// Stage 7: one TLV header decode at offset 0.
+PROBE_KERNEL(k_tlv_step) {
+  const long long lane = lane_id();
+  if (lane >= lanes) return;
+  const LaneWords src{w + lane, lanes, kRowBytes};
+  const ProbeTlv t = probe_tlv(src, 0);
+  const int end = t.hdr + t.content;
+  out[lane] = end < 0 ? 0 : (end > kRowBytes - 1 ? kRowBytes - 1 : end);
+}
+
+// Stage 8: a chained walk of 12 headers, descending into constructed
+// tags and skipping primitives.
+PROBE_KERNEL(k_tlv_walk) {
+  const long long lane = lane_id();
+  if (lane >= lanes) return;
+  const Clipped read{LaneWords{w + lane, lanes, kRowBytes}};
+  int off = 0, acc = 0;
+  for (int i = 0; i < 12; ++i) {
+    const ProbeTlv t = probe_tlv(read, off);
+    const bool constructed = (t.tag & 0x20) != 0;
+    off = (constructed ? off + t.hdr : off + t.hdr + t.content) % kWrap;
+    acc += t.tag;
+  }
+  out[lane] = off + acc;
+}
+
+// Stage 9: the walker fragment on real certificates: Certificate → TBS
+// → optional [0] version → serial, then the serial's byte sum plus
+// 1000 x its length (0 unless the serial tag is INTEGER).
+PROBE_KERNEL(k_serial_extract) {
+  const long long lane = lane_id();
+  if (lane >= lanes) return;
+  const Clipped read{LaneWords{w + lane, lanes, kRowBytes}};
+  const ProbeTlv t0 = probe_tlv(read, 0);
+  const int tbs_off = t0.hdr;
+  const ProbeTlv t1 = probe_tlv(read, tbs_off);
+  const int el = tbs_off + t1.hdr;
+  const ProbeTlv te = probe_tlv(read, el);
+  const int ser_el = te.tag == 0xA0 ? el + te.hdr + te.content : el;
+  const ProbeTlv ts = probe_tlv(read, ser_el);
+  const int ser_off = ser_el + ts.hdr;
+  int lo = ser_off < 0 ? 0 : ser_off;
+  int hi = ser_off + ts.content;
+  if (hi > kRowBytes) hi = kRowBytes;
+  int total = 0;
+  for (int q = lo; q < hi; ++q) total += read.src(q);
+  out[lane] = ts.tag == 0x02 ? total + ts.content * 1000 : 0;
+}
+
+using ProbeFn = void (*)(const uint32_t*, long long, int32_t*);
+const ProbeFn kStages[] = {
+    k_elementwise, k_onehot_read,      k_onehot_dyn, k_fori_reads,
+    k_fori_masked, k_uint_reduce,      k_while_early_exit,
+    k_tlv_step,    k_tlv_walk,         k_serial_extract,
+};
+constexpr int kNumStages = sizeof(kStages) / sizeof(kStages[0]);
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes): launch stage `stage` over
+// words[64, lanes] on `stream` of `device`; does not synchronise;
+// returns cudaGetLastError() of the launch (0 = launched), or -1 for an
+// unknown stage.
+extern "C" int ctmr_probe_stage(int stage, const void* words, long long lanes,
+                                void* out, int device, void* stream) {
+  if (stage < 0 || stage >= kNumStages) return -1;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (lanes <= 0) return 0;
+  const long long blocks = (lanes + kThreads - 1) / kThreads;
+  kStages[stage]<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), lanes, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,10 +1,17 @@
 """The port's entry point: config → aggregator → ingest → drain.
 
-The counterpart of ``ct_mapreduce_tpu.models.ingest_model`` for the
-pre-parsed lane on one device: packed leaf rows go through the native
-sidecar extraction on the host, then the device step (fingerprint
-kernel + bucket-table insert + per-issuer counts), then the host fold;
-``drain()`` gives what storage-statistics prints.
+The counterpart of ``ct_mapreduce_tpu.models.ingest_model`` on one
+device. Packed leaf rows take one of two lanes:
+
+- the walker lane, the default (``preparsedIngest = false``): rows go
+  to the device, where the walker kernel parses them, then the filters,
+  the fingerprint kernel, the bucket-table insert and the per-issuer
+  counts; the host folds the packed per-lane outputs;
+- the pre-parsed lane (``preparsedIngest = true``): the native decoder
+  extracts the fields on the host and the device step is fingerprint +
+  insert + counts only.
+
+Both give the same ``drain()``: what storage-statistics prints.
 """
 
 from __future__ import annotations
@@ -46,24 +53,29 @@ def build_aggregator(config: CTConfig, mesh=None,
 class IngestModel:
     """Aggregator lifecycle, as one object."""
 
-    def __init__(self, aggregator: TorchAggregator):
+    def __init__(self, aggregator: TorchAggregator, preparsed: bool = False):
         self.aggregator = aggregator
+        self.preparsed = preparsed
 
     @classmethod
     def from_config(cls, config: CTConfig, mesh=None,
                     device=None) -> "IngestModel":
-        if not config.preparsed_ingest:
-            raise NotImplementedError(
-                "only the pre-parsed lane (preparsedIngest = true) is "
-                "ported; the DER-walker lane is ROADMAP.md queue 1 item 5")
-        return cls(build_aggregator(config, mesh=mesh, device=device))
+        return cls(build_aggregator(config, mesh=mesh, device=device),
+                   preparsed=config.preparsed_ingest)
+
+    def ingest(self, entries: list[tuple[bytes, bytes]]) -> IngestResult:
+        """(leaf_der, issuer_der) pairs through the walker lane."""
+        return self.aggregator.ingest(entries)
 
     def ingest_packed(self, data: np.ndarray, length: np.ndarray,
                       issuer_idx: np.ndarray,
                       valid: np.ndarray) -> IngestResult:
         """One batch of packed leaf rows (``uint8[n, pad]`` DER, its
         ``int32[n]`` lengths, registry indices and validity) through the
-        pre-parsed lane."""
+        lane the config chose."""
+        if not self.preparsed:
+            return self.aggregator.ingest_packed(data, length, issuer_idx,
+                                                 valid)
         sidecar = leafpack.extract_sidecars(data, length)
         if sidecar is None:
             raise RuntimeError(

@@ -1,2 +1,2 @@
-"""Device ops of the port: SHA-256 fingerprints, the bucket table and
-the pre-parsed step."""
+"""Device ops of the port: the DER walker, SHA-256 fingerprints, the
+bucket table and the two ingest steps."""

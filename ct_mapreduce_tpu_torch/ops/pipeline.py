@@ -1,7 +1,14 @@
-"""The pre-parsed device step (port of the pre-parsed half of
-``ct_mapreduce_tpu.ops.pipeline``).
+"""The device ingest steps (port of ``ct_mapreduce_tpu.ops.pipeline``).
 
-When the native decoder has already extracted the identity fields on
+The walker step, :func:`ingest_core`, is the default ct-fetch path:
+parse DER (the walker kernel K3) → filter (CA / expired / issuer-CN
+prefix) → gather serial → fingerprint (the SHA-256 kernel K1) → dedup
+insert-if-absent → per-issuer new-serial counts. Lanes the device
+cannot take exactly (walker reject, oversized serial, meta range,
+boundary hour, undecidable CN prefix, probe overflow) come back in
+``host_lane`` for the exact host path.
+
+The pre-parsed step, :func:`preparsed_core`: when the native decoder has already extracted the identity fields on
 the host (native/ctmr_native.cpp ``ctmr_extract_sidecars``), the
 device step is fingerprint SHA-256 + dedup-table insert + per-issuer
 counts on compact per-lane inputs (~59 B a lane). The readback is ONE
@@ -21,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ct_mapreduce_tpu_torch.core import packing
-from ct_mapreduce_tpu_torch.ops import buckettable, sha256
+from ct_mapreduce_tpu_torch.ops import buckettable, der_kernel, sha256
 
 N_PREPARSED_FLAG_CAP = 1024  # default compacted-overflow capacity
 
@@ -34,6 +41,186 @@ fingerprints = sha256.sha256_fingerprint64
 #: one the port has).
 table_insert = buckettable.insert
 
+
+def _meta_word(issuer_idx: torch.Tensor, hour_off: torch.Tensor) -> torch.Tensor:
+    """The dedup meta word as int32 bit patterns: issuer index above
+    META_HOUR_BITS (which may set the sign bit), the clipped hour offset
+    below."""
+    meta = ((issuer_idx.to(torch.int64) * (1 << packing.META_HOUR_BITS)
+             | torch.clamp(hour_off, 0, packing.META_HOUR_SPAN - 1))
+            & 0xFFFFFFFF)
+    return sha256.to_int32_bits(meta)
+
+
+def _issuer_counts(issuer_idx: torch.Tensor, was_unknown: torch.Tensor,
+                   num_issuers: int) -> torch.Tensor:
+    """The scatter-add of JAX's ``.at[idx].add(mode="drop")``: a
+    negative index counts from the end (NumPy style), and what is still
+    out of range after that is dropped. int64[num_issuers]."""
+    idx = issuer_idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + num_issuers, idx)
+    in_range = (idx >= 0) & (idx < num_issuers)
+    counts = torch.zeros((num_issuers,), dtype=torch.int64,
+                         device=issuer_idx.device)
+    counts.index_add_(0, torch.where(in_range, idx, 0),
+                      (was_unknown & in_range).to(torch.int64))
+    return counts
+
+
+# -- the walker step ----------------------------------------------------
+
+class StepOut(NamedTuple):
+    was_unknown: torch.Tensor  # bool[B] — device-confirmed first sighting
+    host_lane: torch.Tensor  # bool[B] — lane needs the exact host path
+    filtered_ca: torch.Tensor  # bool[B]
+    filtered_expired: torch.Tensor  # bool[B]
+    filtered_cn: torch.Tensor  # bool[B]
+    stored: torch.Tensor  # bool[B] — passed filters, device-handled
+    not_after_hour: torch.Tensor  # int32[B]
+    serials: torch.Tensor  # uint8[B, MAX_SERIAL_BYTES]
+    serial_len: torch.Tensor  # int32[B]
+    issuer_unknown_counts: torch.Tensor  # int32[num_issuers]
+    has_crldp: torch.Tensor  # bool[B]
+    crldp_off: torch.Tensor  # int32[B] — CRLDP extnValue window in `data`
+    crldp_len: torch.Tensor  # int32[B]
+    issuer_name_off: torch.Tensor  # int32[B] — issuer Name TLV window
+    issuer_name_len: torch.Tensor  # int32[B]
+    probe_overflow: torch.Tensor  # bool[B] — insert exhausted its probe
+    # chain (spills to the exact host lane; `overflow` metric)
+
+
+def _cn_prefix_match(window: torch.Tensor, cn_len: torch.Tensor,
+                     prefixes: torch.Tensor, prefix_lens: torch.Tensor):
+    """Does the issuer CN start with any configured prefix?
+
+    ``window`` uint8[B, K] holds the K bytes at each lane's CN offset
+    (the walker's CN window); ``prefixes`` uint8[P, K] the first K
+    bytes of each prefix; ``prefix_lens`` int32[P, 2] the device-
+    comparable length (min(len, K)) and the true length. Returns
+    ``(hit, undecidable)`` bool[B]: ``undecidable`` matches the K-byte
+    head of a LONGER-than-K prefix and is long enough that the tail
+    could match, so the exact host lane must decide."""
+    k = prefixes.shape[1]
+    dev = window.device
+    cols = torch.arange(k, device=dev)
+    window = torch.where(cols[None, :] < cn_len[:, None], window, 0)
+    dev_lens = prefix_lens[:, 0].to(torch.int64)
+    true_lens = prefix_lens[:, 1].to(torch.int64)
+    eq = window[:, None, :] == prefixes[None, :, :]  # [B, P, K]
+    care = cols[None, None, :] < dev_lens[None, :, None]
+    full = (eq | ~care).all(dim=-1)  # [B, P]
+    truncated = (true_lens > dev_lens)[None, :]
+    cl = cn_len.to(torch.int64)[:, None]
+    hit = (full & (cl >= dev_lens[None, :]) & ~truncated).any(dim=-1)
+    undecidable = (full & (cl >= true_lens[None, :]) & truncated).any(dim=-1)
+    return hit, undecidable
+
+
+class LocalLanes(NamedTuple):
+    """Per-lane results of the communication-free ingest stages."""
+
+    parsed: der_kernel.ParsedCerts
+    serials: torch.Tensor  # uint8[B, MAX_SERIAL_BYTES]
+    filtered_ca: torch.Tensor
+    filtered_expired: torch.Tensor
+    filtered_cn: torch.Tensor
+    passed: torch.Tensor  # survived all filters
+    device_exact: torch.Tensor  # serial/meta/issuer fit the device schema
+    insertable: torch.Tensor  # passed & device_exact
+    fps: torch.Tensor  # int32[B, 4] dedup fingerprints (uint32 bits)
+    meta: torch.Tensor  # int32[B] packed (issuer_idx, exp-hour offset)
+
+
+def local_lanes(data: torch.Tensor, length: torch.Tensor,
+                issuer_idx: torch.Tensor, valid: torch.Tensor,
+                now_hour: int, base_hour: int, cn_prefixes: torch.Tensor,
+                cn_prefix_lens: torch.Tensor,
+                num_issuers: int) -> LocalLanes:
+    """Parse → filter → fingerprint. One walker launch gives the parsed
+    fields, the serial window and the CN window; with no CN prefixes
+    configured the RDN scan is skipped."""
+    n_prefixes, k = cn_prefixes.shape
+    scan = n_prefixes > 0
+    w = der_kernel.walk(data, length, scan_issuer_cn=scan,
+                        cn_window=k if scan else 0,
+                        max_serial_bytes=packing.MAX_SERIAL_BYTES)
+    parsed = w.parsed
+    ok = parsed.ok & valid
+
+    # Filters, in the reference's precedence order (CA, expired, CN).
+    f_ca = ok & parsed.is_ca
+    f_expired = ok & ~f_ca & (parsed.not_after_hour < now_hour)
+    if scan:
+        cn_hit, cn_undec = _cn_prefix_match(
+            w.cn_window, parsed.issuer_cn_len, cn_prefixes, cn_prefix_lens)
+        # A lane matching only the truncated head of an over-long prefix
+        # is not filtered here: it routes to the exact host lane below.
+        cn_undec = ok & ~f_ca & ~f_expired & ~cn_hit & cn_undec
+        f_cn = ok & ~f_ca & ~f_expired & ~cn_hit & ~cn_undec
+    else:
+        f_cn = cn_undec = torch.zeros_like(ok)
+    passed = ok & ~f_ca & ~f_expired & ~f_cn
+
+    # Device-exactness gate. A cert expiring WITHIN the current hour
+    # also takes the exact host lane: the device compares hour buckets,
+    # the reference compares instants.
+    hour_off = parsed.not_after_hour.to(torch.int64) - base_hour
+    meta_ok = (hour_off >= 0) & (hour_off < packing.META_HOUR_SPAN)
+    idx_ok = (issuer_idx >= 0) & (issuer_idx < num_issuers)
+    boundary_hour = parsed.not_after_hour == now_hour
+    device_exact = w.fits & meta_ok & idx_ok & ~boundary_hour & ~cn_undec
+
+    fps = fingerprints(issuer_idx, parsed.not_after_hour, w.serials,
+                       parsed.serial_len)
+    return LocalLanes(
+        parsed=parsed, serials=w.serials, filtered_ca=f_ca,
+        filtered_expired=f_expired, filtered_cn=f_cn, passed=passed,
+        device_exact=device_exact, insertable=passed & device_exact,
+        fps=fps, meta=_meta_word(issuer_idx, hour_off))
+
+
+def ingest_core(table, data: torch.Tensor, length: torch.Tensor,
+                issuer_idx: torch.Tensor, valid: torch.Tensor,
+                now_hour: int, base_hour: int, cn_prefixes: torch.Tensor,
+                cn_prefix_lens: torch.Tensor,
+                num_issuers: int = packing.MAX_ISSUERS,
+                max_probes: int = 32):
+    """One packed batch end to end on the rows' device.
+
+    ``data`` uint8[B, L], ``length``/``issuer_idx`` int32[B], ``valid``
+    bool[B]; ``now_hour`` is "now" for the expiry filter, ``base_hour``
+    the meta word's epoch; ``cn_prefixes`` uint8[P, K] and
+    ``cn_prefix_lens`` int32[P, 2] (P == 0 disables the CN filter).
+    Returns ``(table, StepOut)``."""
+    lanes = local_lanes(data, length, issuer_idx, valid, now_hour,
+                        base_hour, cn_prefixes, cn_prefix_lens, num_issuers)
+    parsed = lanes.parsed
+    table, was_unknown, overflowed = table_insert(
+        table, lanes.fps, lanes.meta, lanes.insertable, max_probes=max_probes)
+    host_lane = ((valid & ~parsed.ok) | (lanes.passed & ~lanes.device_exact)
+                 | overflowed)
+    counts = _issuer_counts(issuer_idx, was_unknown, num_issuers)
+    return table, StepOut(
+        was_unknown=was_unknown,
+        host_lane=host_lane,
+        probe_overflow=overflowed,
+        filtered_ca=lanes.filtered_ca,
+        filtered_expired=lanes.filtered_expired,
+        filtered_cn=lanes.filtered_cn,
+        stored=lanes.insertable & ~overflowed,
+        not_after_hour=parsed.not_after_hour,
+        serials=lanes.serials,
+        serial_len=parsed.serial_len,
+        issuer_unknown_counts=counts.to(torch.int32),
+        has_crldp=parsed.has_crldp,
+        crldp_off=parsed.crldp_off,
+        crldp_len=parsed.crldp_len,
+        issuer_name_off=parsed.issuer_off,
+        issuer_name_len=parsed.issuer_len,
+    )
+
+
+# -- the pre-parsed step ------------------------------------------------
 
 class PreparsedStepOut(NamedTuple):
     """Device outputs of the pre-parsed step, readback-oriented."""
@@ -84,21 +271,10 @@ def preparsed_core(
         ii = issuer_idx[k]
         fps = fingerprints(ii, not_after_hour[k], serials[k], serial_len[k])
         hour_off = not_after_hour[k].to(torch.int64) - base_hour
-        meta = ((ii.to(torch.int64) * (1 << packing.META_HOUR_BITS)
-                 | torch.clamp(hour_off, 0, packing.META_HOUR_SPAN - 1))
-                & 0xFFFFFFFF)
         table, wu, ovf = table_insert(
-            table, fps, sha256.to_int32_bits(meta), insertable[k],
+            table, fps, _meta_word(ii, hour_off), insertable[k],
             max_probes=max_probes)
-        # The scatter-add of JAX's ``.at[idx].add(mode="drop")``: a
-        # negative index counts from the end (NumPy style), and what is
-        # still out of range after that is dropped.
-        idx = ii.to(torch.int64)
-        idx = torch.where(idx < 0, idx + num_issuers, idx)
-        in_range = (idx >= 0) & (idx < num_issuers)
-        counts = torch.zeros((num_issuers,), dtype=torch.int64, device=dev)
-        counts.index_add_(0, torch.where(in_range, idx, 0),
-                          (wu & in_range).to(torch.int64))
+        counts = _issuer_counts(ii, wu, num_issuers)
         ovf_idx = torch.sort(torch.where(ovf, iota, b)).values[:flag_cap]
         if flag_cap > b:  # tiny chunks: keep the packed width static
             ovf_idx = torch.cat([ovf_idx, ovf_idx.new_full((flag_cap - b,), b)])

@@ -1,6 +1,7 @@
-"""The port on a CUDA card: each kernel against its plain PyTorch
-version, and the tensor-op layers on the card against the same code on
-the CPU. Tolerance: exact equality (integer arithmetic throughout).
+"""The port on a CUDA card: each kernel (the fingerprint SHA-256, the
+DER walker, the ten probe stages) against its plain PyTorch version,
+and the tensor-op layers on the card against the same code on the CPU.
+Tolerance: exact equality (integer arithmetic throughout).
 
 Every test here needs a CUDA device and skips without one. The file
 imports nothing of JAX, so it also runs where JAX is not installed:
@@ -15,7 +16,10 @@ import pytest
 import torch
 
 from ct_mapreduce_tpu_torch.core import packing
-from ct_mapreduce_tpu_torch.ops import buckettable, pipeline, sha256, sha256_cuda
+from ct_mapreduce_tpu_torch.ops import (
+    buckettable, der_kernel, der_kernel_cuda, pipeline, sha256, sha256_cuda)
+from ct_mapreduce_tpu_torch.tools import mosaic_probe
+from ct_mapreduce_tpu_torch.utils import dercases
 
 pytestmark = pytest.mark.cuda
 
@@ -162,3 +166,133 @@ def test_aggregator_on_card_matches_cpu(cuda):
     assert (gpu_m, gpu_cap, gpu_snap) == (cpu_m, cpu_cap, cpu_snap)
     assert cpu_cap > 24 * 8 and cpu_m["overflow"] > 0
     assert cpu_m["host_lane"] > cpu_m["overflow"]
+
+
+def _walker_rows(pad: int):
+    """Crafted edge cases, templates and their mutants, packed at ``pad``."""
+    import datetime
+
+    from ct_mapreduce_tpu_torch.utils import syncerts
+
+    utc = datetime.timezone.utc
+    ders = dercases.crafted()
+    for i in range(6):
+        t = syncerts.make_template(
+            issuer_cn=f"Walker Issuer {i}", serial_len=8 + 2 * i,
+            key_type="rsa2048" if i % 2 else "ec", rich_extensions=i > 1,
+            not_after=datetime.datetime(2026 + 20 * i, 5, 6, 7, tzinfo=utc))
+        ders += [(t.leaf_der, None), (t.issuer_der, None)]
+    data, length = dercases.pack(ders, pad)
+    mut, mlen = dercases.mutate_rows(data, length, 4096,
+                                     np.random.default_rng(pad))
+    return np.concatenate([data, mut]), np.concatenate([length, mlen])
+
+
+@pytest.mark.parametrize("pad", [192, 2048])
+@pytest.mark.parametrize("scan,cn_window", [(True, 61), (True, 0), (False, 0)])
+def test_walker_kernel_matches_plain(cuda, pad, scan, cn_window):
+    data, length = _walker_rows(pad)
+    d, ln = torch.from_numpy(data).to(cuda), torch.from_numpy(length).to(cuda)
+    before = der_kernel_cuda.LAUNCHES
+    got = der_kernel.walk(d, ln, scan, cn_window)
+    torch.cuda.synchronize()
+    assert der_kernel_cuda.LAUNCHES == before + 1
+    want = der_kernel.walk_plain(d, ln, scan, cn_window)
+    for f in der_kernel.ParsedCerts._fields:
+        assert torch.equal(getattr(got.parsed, f), getattr(want.parsed, f)), f
+    assert torch.equal(got.serials, want.serials)
+    assert torch.equal(got.fits, want.fits)
+    assert torch.equal(got.cn_window, want.cn_window)
+    ok = want.parsed.ok
+    assert int(ok.sum()) < ok.numel()
+    if pad > 256:  # every certificate is longer than the narrow rows
+        assert int(ok.sum()) > 0
+
+
+def test_walker_kernel_checks_its_inputs(cuda):
+    data, length = _walker_rows(192)
+    d, ln = torch.from_numpy(data).to(cuda), torch.from_numpy(length).to(cuda)
+    with pytest.raises(TypeError):
+        der_kernel_cuda.walk(d, ln.long(), True)
+    with pytest.raises(ValueError, match="shape"):
+        der_kernel_cuda.walk(d, ln[:5], True)
+    with pytest.raises(ValueError, match="contiguous"):
+        der_kernel_cuda.walk(d[:, ::2], ln, True)
+    with pytest.raises(ValueError, match="cn_window"):
+        der_kernel_cuda.walk(d, ln, True, 62)
+    before = der_kernel_cuda.LAUNCHES
+    empty = der_kernel_cuda.walk(d[:0], ln[:0], True, 61)
+    assert empty.serials.shape == (0, 46) and der_kernel_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("lanes", [mosaic_probe.LANES, 1000])
+def test_probe_stages_match_plain(cuda, lanes):
+    for stage in range(len(mosaic_probe.STAGES)):
+        words, expected = mosaic_probe.stage_inputs(stage, lanes, seed=lanes)
+        w = mosaic_probe.to_tensor(words, cuda)
+        before = mosaic_probe.LAUNCHES[stage]
+        got = mosaic_probe.run_stage(stage, w)
+        torch.cuda.synchronize()
+        assert mosaic_probe.LAUNCHES[stage] == before + 1
+        assert torch.equal(got, mosaic_probe.plain_stage(stage, w)), stage
+        if expected is not None:
+            np.testing.assert_array_equal(got.cpu().numpy(), expected)
+
+
+def test_walker_lane_on_card_matches_cpu(cuda):
+    """The walker lane through the aggregator on the card against the
+    same lane on the CPU: a CN filter with an over-long prefix (host
+    lane), replays, a grow and probe overflow."""
+    import datetime
+
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+    from ct_mapreduce_tpu_torch.utils import syncerts
+
+    utc = datetime.timezone.utc
+    now = datetime.datetime(2025, 1, 1, tzinfo=utc)
+    long_cn = "Card Long " + "y" * 64
+    cns = [f"Card Issuer {i}" for i in range(4)] + [long_cn]
+    tpls = [syncerts.make_template(
+        issuer_cn=cn, serial_len=8 + 2 * i, rich_extensions=i % 2 == 0,
+        not_after=now + datetime.timedelta(days=100 + 50 * i),
+        key_type="rsa2048" if i % 2 else "ec") for i, cn in enumerate(cns)]
+    rng = np.random.default_rng(11)
+    batches, pool, counter = [], [], 1
+    for _ in range(5):
+        entries = []
+        for t in rng.choice(len(tpls), size=160, p=[.3, .3, .2, .1, .1]):
+            if pool and rng.random() < 0.4:
+                t, c = pool[rng.integers(len(pool))]
+            else:
+                c, counter = counter, counter + 1
+                pool.append((t, c))
+            entries.append((syncerts.stamp_serial(tpls[t], int(c)), int(t)))
+        batches.append(packing.pack_entries(entries, pad_len=2048))
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        agg = TorchAggregator(capacity=24 * 8, batch_size=128, now=now,
+                              max_probes=1, grow_at=0.9, max_capacity=24 * 16,
+                              cn_prefixes=("Card Issuer 0", "Card Issuer 1",
+                                           "Card Issuer 2", long_cn[:64]),
+                              device=dev)
+        idx_of = np.array([agg.registry.get_or_assign(t.issuer_der)
+                           for t in tpls], np.int32)
+        results = []
+        for pb in batches:
+            res = agg.ingest_packed(pb.data, pb.length, idx_of[pb.issuer_idx],
+                                    pb.valid)
+            results.append((res.was_unknown.copy(), res.filtered.copy(),
+                            list(res.serials),
+                            buckettable.host_rows(agg.table).copy()))
+        snap = agg.drain()
+        runs.append((results, dict(agg.metrics), agg.capacity,
+                     (snap.counts, snap.crls, snap.dns, snap.total)))
+    (cpu_res, cpu_m, cpu_cap, cpu_snap), (gpu_res, gpu_m, gpu_cap, gpu_snap) = runs
+    for c, g in zip(cpu_res, gpu_res):
+        np.testing.assert_array_equal(g[0], c[0])
+        np.testing.assert_array_equal(g[1], c[1])
+        assert g[2] == c[2]
+        np.testing.assert_array_equal(g[3], c[3])
+    assert (gpu_m, gpu_cap, gpu_snap) == (cpu_m, cpu_cap, cpu_snap)
+    assert cpu_cap > 24 * 8 and cpu_m["overflow"] > 0
+    assert cpu_m["filtered_cn"] > 0 and cpu_m["host_lane"] > cpu_m["overflow"]

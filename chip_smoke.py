@@ -18,9 +18,12 @@ Phases, none of them caught — any failure exits non-zero:
    CUDA events;
 3. K3 against its plain version on 2^20 stream rows plus mutants made
    from ``--seed`` (byte flips, length-octet edits, truncations,
-   extension lists past MAX_EXTS) and the crafted edge cases, every
-   field bit for bit, and the same rows against the native scalar
-   walker; K3 and its plain version timed on the stream rows;
+   extension lists past MAX_EXTS) and the crafted edge cases (with the
+   family that puts each frame at every offset modulo 16), every field
+   bit for bit; the mutants and crafted rows again at odd widths (193,
+   2047 bytes) in contiguous views that start off 16-byte alignment;
+   the stream and mutant rows against the native scalar walker; K3 and
+   its plain version timed on the stream rows;
 4. the probe ladder: its command-line path on the card (each stage at
    one tile against its plain version, stage 9 against the host
    parser, stage 9 timed at 2^20 lanes), then every stage at 2^20 lanes
@@ -33,9 +36,12 @@ Phases, none of them caught — any failure exits non-zero:
    load, serial lengths 8..20, about half the entries replaying an
    earlier serial, a few percent expired leaves and CA certificates;
    enough batches for a table grow. ``drain()`` and every batch's
-   ``was_unknown`` are held to an exact host oracle;
+   ``was_unknown`` are held to an exact host oracle. After the check,
+   one more batch, outside the timed ones, captures the step's bucket
+   insert, which is then replayed on copies of the table and timed;
 6. the pre-parsed lane over the same batches and config: held to the
-   oracle, and its ``drain()`` to the walker lane's;
+   oracle, and its ``drain()`` to the walker lane's; its insert timed
+   as in 5;
 7. a 2 GiB table (``tableBits`` 26, 2^22 buckets) prefilled to about 50%
    of its slots with random keys through the port's insert, then one
    pre-parsed batch on top; ``was_unknown`` against the oracle and
@@ -79,11 +85,17 @@ TIMED_REPS = 25  # CUDA-event timings per turn (two turns each)
 PLAIN_REPS = 5  # timings per turn of a slow plain version
 KERNEL_CALLS_PER_TIMING = 20  # back-to-back launches between two events
 MUTANTS = 8192  # mutated rows beside the 2^20 stream rows in phase 3
+# Row widths that are not multiples of 16: phase 3 walks the mutants and
+# crafted rows cut to these widths in views that start unaligned.
+ODD_WIDTHS = (193, 2047)
 FOOTPRINT_CHUNK = 1 << 16  # lanes per footprint count (memory)
 # A read byte costs a thread at least an address add, a load and the
 # shift/mask or compare that uses it: integer operations per byte read,
 # for the operations half of a walker or probe bound.
 OPS_PER_BYTE_READ = 3
+# SASS memory instructions the --sass report counts: global, shared and
+# local loads and stores (LDL/STL are spills or arrays in local memory).
+MEMORY_OPCODES = ("LDG", "STG", "LDS", "STS", "LDL", "STL")
 
 
 def fail(msg: str) -> None:
@@ -186,18 +198,27 @@ def sass_report(out_dir: str) -> dict:
             with open(os.path.join(out_dir, f"{name}_{kind}.txt"), "w") as f:
                 f.write(text)
         ops = collections.Counter(m.group(1).split(".")[0] for m in re.finditer(
-            r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
+            r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
             sass, re.M))
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", ptxas)]
+        spill_loads = [int(x) for x in re.findall(r"(\d+) bytes spill loads", ptxas)]
+        mem = {op: ops.get(op, 0) for op in MEMORY_OPCODES}
         report[name] = {"registers_max": max(regs, default=None),
                         "spill_store_bytes": sum(spills),
+                        "spill_load_bytes": sum(spill_loads),
+                        "memory_ops": mem,
                         "instructions": sum(ops.values()),
                         "by_opcode": dict(ops.most_common())}
         print(f"sass {name}: at most {report[name]['registers_max']} "
-              f"registers, {sum(spills)} B spilled, "
-              f"{report[name]['instructions']} instructions; "
-              f"{dict(ops.most_common(8))}", flush=True)
+              f"registers, {sum(spills)} B spill stores, {sum(spill_loads)} "
+              f"B spill loads, {report[name]['instructions']} instructions; "
+              f"{mem}; {dict(ops.most_common(8))}", flush=True)
+    k3 = report["k3"]
+    check(k3["spill_store_bytes"] == 0 and k3["spill_load_bytes"] == 0
+          and k3["memory_ops"]["LDL"] == 0 and k3["memory_ops"]["STL"] == 0,
+          "the walker kernel uses local memory (spills or a register array "
+          "indexed at run time)")
     return report
 
 
@@ -459,6 +480,30 @@ def _max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def _walker_vs_plain(d, ln, scan: bool, cn_k: int, what: str):
+    """K3 and its plain version on the same rows: every field, the serial
+    and CN windows bit for bit. Returns (K3's output, max abs err)."""
+    import torch
+
+    from ct_mapreduce_tpu_torch.ops import der_kernel, der_kernel_cuda
+
+    got = der_kernel_cuda.walk(d, ln, scan, cn_k)
+    want = der_kernel.walk_plain(d, ln, scan, cn_k)
+    torch.cuda.synchronize()
+    pairs = [(getattr(got.parsed, f), getattr(want.parsed, f), f)
+             for f in der_kernel.ParsedCerts._fields]
+    pairs += [(got.serials, want.serials, "serials"),
+              (got.fits, want.fits, "fits"),
+              (got.cn_window, want.cn_window, "cn_window")]
+    err = 0
+    for g, w, name in pairs:
+        e = _max_abs_err(g, w)
+        err = max(err, e)
+        check(torch.equal(g, w), f"walker kernel != plain version on {what} "
+              f"in {name} (scan_issuer_cn={scan}, max abs err {e})")
+    return got, err
+
+
 def walker_check(device, seed: int) -> dict:
     import numpy as np
     import torch
@@ -480,21 +525,30 @@ def walker_check(device, seed: int) -> dict:
     cn_k = der_kernel.MAX_FIXED_WINDOW_BYTES
     err = 0
     for scan, k in ((True, cn_k), (False, 0)):
-        got = der_kernel_cuda.walk(d, ln, scan, k)
-        want = der_kernel.walk_plain(d, ln, scan, k)
-        torch.cuda.synchronize()
-        pairs = [(getattr(got.parsed, f), getattr(want.parsed, f), f)
-                 for f in der_kernel.ParsedCerts._fields]
-        pairs += [(got.serials, want.serials, "serials"),
-                  (got.fits, want.fits, "fits"),
-                  (got.cn_window, want.cn_window, "cn_window")]
-        for g, w, name in pairs:
-            e = _max_abs_err(g, w)
-            err = max(err, e)
-            check(torch.equal(g, w), f"walker kernel != plain version in "
-                  f"{name} (scan_issuer_cn={scan}, max abs err {e})")
+        got, e = _walker_vs_plain(d, ln, scan, k, "the stream rows")
+        err = max(err, e)
         if scan:
             full = got
+    # Odd widths in unaligned views: the mutants and crafted rows cut to
+    # each width, from the second row of a buffer (d[1:]) and from one
+    # byte into a flat buffer, so the first and last chunks of the
+    # tensor reach past it.
+    odd, odd_len = np.concatenate([mut, cdata]), np.concatenate([mlen, clen])
+    odd_ln = torch.from_numpy(odd_len).to(device)
+    for width in ODD_WIDTHS:
+        cut = torch.from_numpy(np.ascontiguousarray(odd[:, :width])).to(device)
+        rows_buf = torch.zeros((cut.shape[0] + 1, width), dtype=torch.uint8,
+                               device=device)
+        rows_buf[1:] = cut
+        flat = torch.zeros(cut.numel() + 1, dtype=torch.uint8, device=device)
+        flat[1:] = cut.reshape(-1)
+        for view in (rows_buf[1:], flat[1:].view(cut.shape)):
+            check(view.is_contiguous() and view.data_ptr() % 16 != 0,
+                  "an odd-width view is 16-byte aligned")
+            for scan, k in ((True, cn_k), (False, 0)):
+                _got, e = _walker_vs_plain(view, odd_ln, scan, k,
+                                           f"{width}-byte rows in a view")
+                err = max(err, e)
     ok = full.parsed.ok.cpu().numpy()
     m = n + MUTANTS  # stream rows and mutants: every length inside the row
     sc = leafpack.extract_sidecars(rows[:m], lens[:m])
@@ -545,9 +599,12 @@ def walker_check(device, seed: int) -> dict:
            "ops_bound_ms": op_ms, "bound_ms": max(byte_ms, op_ms),
            "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
     out["share_of_bound"] = out["bound_ms"] / k_ms
+    out["odd_widths"] = list(ODD_WIDTHS)
     print(f"phase 3: walker kernel == plain on {out['rows']} rows (2^20 "
           f"stream, {MUTANTS} mutants of which {mut_ok} accepted, "
-          f"{out['crafted']} crafted), == native walker on {m}; kernel "
+          f"{out['crafted']} crafted) and on the mutants and crafted rows "
+          f"at widths {ODD_WIDTHS} in unaligned views, == native walker on "
+          f"{m}; kernel "
           f"{k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {out['bound_ms']:.4f} "
           f"ms ({out['bound_by']}; {sectors / n:.1f} sectors, "
           f"{reads / n:.0f} byte reads a lane), {out['share_of_bound']:.1%} "
@@ -665,6 +722,90 @@ class StageTimes:
         return self.times
 
 
+class InsertCount:
+    """Counts the bucket inserts (``pipeline.table_insert``, PyTorch
+    tensor ops until K2 has its kernel) of a main path, the step's and a
+    grow's re-insert chunks, and does nothing else to them."""
+
+    def __init__(self) -> None:
+        from ct_mapreduce_tpu_torch.ops import pipeline
+
+        self._fn = pipeline.table_insert
+        self.calls = 0
+
+        def run(*args, **kwargs):
+            self.calls += 1
+            return self._fn(*args, **kwargs)
+
+        pipeline.table_insert = run
+
+    def close(self) -> int:
+        from ct_mapreduce_tpu_torch.ops import pipeline
+
+        pipeline.table_insert = self._fn
+        return self.calls
+
+
+def insert_cost(model, stream: Stream, idx_of, n: int, replay: float,
+                lane: str) -> dict:
+    """One step's bucket insert, apart from the timed batches: one more
+    batch goes through the lane with the step's insert (the call of
+    width ``n``) captured, with a copy of the table rows before it. The
+    call is then replayed on fresh copies of those rows, each replay
+    timed with CUDA events and its verdicts held to the captured ones.
+
+    Its byte bound: the distinct bucket rows its valid keys' home
+    buckets name, read once, and those of its new keys, written once
+    (512 B each; hops are left out, so this bounds from below), plus
+    16 B of key, 4 B of meta and 1 B of valid in and 2 B of verdicts out
+    a lane."""
+    import numpy as np
+    import torch
+
+    from ct_mapreduce_tpu_torch.ops import buckettable, pipeline
+
+    fn = pipeline.table_insert
+    captured = []
+
+    def run(table, keys, meta, valid, **kwargs):
+        if keys.shape[0] != n or captured:
+            return fn(table, keys, meta, valid, **kwargs)
+        before = buckettable.BucketTable(table.rows.clone(), table.count.clone())
+        out = fn(table, keys, meta, valid, **kwargs)
+        captured.append((before, keys, meta, valid, kwargs, out[1], out[2]))
+        return out
+
+    pipeline.table_insert = run
+    try:
+        data, length, tof, _ctr = stream.batch(n, replay)
+        model.ingest_packed(data, length, idx_of[tof], np.ones((n,), bool))
+    finally:
+        pipeline.table_insert = fn
+    check(len(captured) == 1, f"{lane}: no insert of the step's width")
+    before, keys, meta, valid, kwargs, new, ovf = captured[0]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(TIMED_REPS):
+        table = buckettable.BucketTable(before.rows.clone(), before.count.clone())
+        start.record()
+        _t, got_new, got_ovf = fn(table, keys, meta, valid, **kwargs)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        check(torch.equal(got_new, new) and torch.equal(got_ovf, ovf),
+              f"{lane}: a replayed insert gave other verdicts")
+    home = buckettable._home_bucket(buckettable._desentinel(keys),
+                                    before.n_buckets)
+    rows_read = int(torch.unique(home[valid]).numel())
+    rows_written = int(torch.unique(home[new]).numel())
+    moved = ((rows_read + rows_written) * buckettable.ROW_WORDS * 4
+             + n * (16 + 4 + 1 + 2))
+    return {"ms": median(ms), "ms_min": min(ms), "ms_max": max(ms),
+            "rows_read": rows_read, "rows_written": rows_written,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
 def _config(batch_log2: int, table_bits: int, preparsed: bool,
             prefixes: tuple[str, ...] = ()):
     from ct_mapreduce_tpu_torch.config import CTConfig
@@ -715,6 +856,7 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
     seen = np.zeros((stream.next_counter + n_batches * n + 1,), bool)
     step_s, gen_s = [], []
     stages = StageTimes(model)
+    inserts = InsertCount()
     reset_counts()
     for _ in range(n_batches):
         t0 = time.perf_counter()
@@ -739,6 +881,8 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
               f"{lane}: filter verdicts differ")
     launches = read_counts()
     stage_s = stages.close()
+    insert_calls = inserts.close()
+    check(insert_calls > 0, f"{lane}: no bucket insert on the main path")
     check(launches["sha256_fp"] > 0,
           f"{lane}: the fingerprint kernel never ran on the main path")
     check(preparsed or launches["der_walk"] > 0,
@@ -764,14 +908,21 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
         "metrics": dict(agg.metrics),
         "snapshot": snap,
     }
+    # After the drain's check, so the extra batch is in no oracle.
+    out["insert"] = dict(insert_cost(model, stream, idx_of, n, replay, lane),
+                         calls=insert_calls)
+    insert = out["insert"]
     parts = ", ".join(f"{k} {median(v):.3f}" for k, v in stage_s.items() if v)
     print(f"{lane} lane: {entries} entries in {n_batches} batches of {n}, "
-          f"{out['unique_serials']} unique, {agg.metrics['host_lane']} host-"
-          f"lane lanes; drain == oracle; table {cap0} -> {agg.capacity} "
+          f"{out['unique_serials']} unique, {out['metrics']['host_lane']} "
+          f"host-lane lanes; drain == oracle; table {cap0} -> "
+          f"{out['capacity_end']} "
           f"slots; launches {launches['sha256_fp']} K1, "
           f"{launches['der_walk']} K3; {out['entries_per_s']:.0f} entries/s "
           f"through ingest_packed (median {median(step_s):.3f} s/batch: "
-          f"{parts})", flush=True)
+          f"{parts}); insert {insert['calls']} calls, one step's "
+          f"{insert['ms']:.2f} ms apart from them, bound "
+          f"{insert['bound_ms']:.4f} ms (bytes)", flush=True)
     return out
 
 

@@ -25,6 +25,10 @@ from ct_mapreduce_tpu_torch.ops.der_kernel import (
 #: nothing and does not count).
 LAUNCHES = 0
 
+#: Widest serial window the kernel's shared-memory staging is sized for
+#: (``kMaxSerial`` in ``csrc/der_walk.cu``).
+MAX_SERIAL_WINDOW = 256
+
 #: Row order of the kernel's int32 field block and uint8 flag block.
 FIELDS = ("serial_off", "serial_len", "not_after_hour", "issuer_cn_off",
           "issuer_cn_len", "issuer_off", "issuer_len", "spki_off",
@@ -60,8 +64,11 @@ def walk(data: torch.Tensor, length: torch.Tensor, scan_issuer_cn: bool,
         raise ValueError(f"cn_window {cn_window} outside 0..{MAX_FIXED_WINDOW_BYTES}")
     if cn_window and not scan_issuer_cn:
         raise ValueError("a CN window needs the issuer-CN scan")
-    if max_serial_bytes < 1:
-        raise ValueError("max_serial_bytes must be positive")
+    if not 1 <= max_serial_bytes <= MAX_SERIAL_WINDOW:
+        raise ValueError(
+            f"max_serial_bytes {max_serial_bytes} outside 1..{MAX_SERIAL_WINDOW}"
+            ": the kernel stages the serial window in shared memory sized for "
+            f"at most {MAX_SERIAL_WINDOW} bytes a lane")
     fields = torch.empty((len(FIELDS), b), dtype=torch.int32, device=dev)
     flags = torch.empty((len(FLAGS), b), dtype=torch.uint8, device=dev)
     serials = torch.empty((b, max_serial_bytes), dtype=torch.uint8, device=dev)

@@ -4,7 +4,10 @@ The crafted certificates hit every budget and guard of the walker: more
 issuer RDNs than ``MAX_RDNS``, more extensions than ``MAX_EXTS``,
 long-form lengths of one to four octets (``0x81``-``0x84``, minimal or
 not), serial contents of 0 to 47 bytes, lengths of at most 4, and
-lengths past the packed row. :func:`mutate_rows` derives byte flips,
+lengths past the packed row. :func:`boundary_family` puts each frame
+of the walk at every offset modulo 16, so a reader of aligned 16-byte
+chunks meets every way a frame can straddle two chunks.
+:func:`mutate_rows` derives byte flips,
 length-octet edits, truncations and over-long extension lists from
 packed rows with a NumPy generator, so every run with one seed sees the
 same mutants.
@@ -50,23 +53,27 @@ def cert(serial: bytes = b"\x4d\x01\x02\x03", issuer: bytes | None = None,
          n_ext: int = 1, bc_last: bool = False, is_ca: bool = False,
          crldp: str | None = "http://crl.crafted.example/c.crl",
          octets: dict | None = None,
-         not_after: datetime.datetime | None = None) -> bytes:
+         not_after: datetime.datetime | None = None, version_pad: int = 0,
+         ext_value: int = 3) -> bytes:
     """One certificate assembled from parts. ``n_ext`` opaque
-    extensions go before (or, with ``bc_last``, after) BasicConstraints;
-    ``octets`` forces the long-form length octets of the named frames
-    (``cert``, ``tbs``, ``serial``, ``issuer``, ``exts``, ``value``)."""
+    extensions of ``ext_value`` value bytes go before (or, with
+    ``bc_last``, after) BasicConstraints; ``octets`` forces the
+    long-form length octets of the named frames (``cert``, ``tbs``,
+    ``serial``, ``issuer``, ``exts``, ``value``); ``version_pad``
+    leading zero bytes widen the version INTEGER."""
     o = octets or {}
     not_after = not_after or datetime.datetime(2031, 6, 15, tzinfo=_UTC)
     sig_alg = _tlv(0x30, _tlv(0x06, minicert._OID_ECDSA_SHA256))
     opaque = [_tlv(0x30, _tlv(0x06, minicert._oid(1, 3, 6, 1, 4, 1, 99999, i))
-                   + tlv(0x04, bytes([i & 0xFF]) * 3, o.get("value", 0)))
+                   + tlv(0x04, bytes([i & 0xFF]) * ext_value,
+                         o.get("value", 0)))
               for i in range(n_ext)]
     bc = minicert._basic_constraints(is_ca)
     exts = b"".join(opaque + [bc] if bc_last else [bc] + opaque)
     if crldp:
         exts += minicert._crldp((crldp,))
     tbs = tlv(0x30, b"".join([
-        _tlv(0xA0, bytes([0x02, 0x01, 0x02])),
+        _tlv(0xA0, _tlv(0x02, bytes(version_pad) + b"\x02")),
         tlv(0x02, serial, o.get("serial", 0)),
         sig_alg,
         issuer if issuer is not None else name(3, 2, octets=o.get("issuer", 0)),
@@ -115,7 +122,24 @@ def crafted() -> list[tuple[bytes, int | None]]:
     # Lengths past the row (the caller packs rows narrower than these).
     for extra in (1, 300, 1 << 20):
         out.append((base, len(base) + extra))
-    return out
+    return out + boundary_family()
+
+
+def boundary_family() -> list[tuple[bytes, None]]:
+    """Four runs of 16 certificates, each run moving some frames by one
+    byte a step, so that those frames take every offset modulo 16: a
+    version INTEGER with 0..15 leading zeros (the serial and every frame
+    after it), serials of 8..23 content bytes (the issuer and after),
+    issuer CNs of 16 consecutive lengths (validity, subject, SPKI and
+    the extensions), and an opaque extension of 3..18 value bytes ahead
+    of BasicConstraints and the CRLDP."""
+    out = []
+    for i in range(16):
+        out.append(cert(version_pad=i))
+        out.append(cert(serial=bytes([0x4D]) + bytes(range(1, 8 + i))))
+        out.append(cert(issuer=name(3, 2, cn="Boundary CA " + "b" * i)))
+        out.append(cert(ext_value=3 + i, bc_last=True, is_ca=i % 2 == 0))
+    return [(d, None) for d in out]
 
 
 def pack(ders: list[tuple[bytes, int | None]], pad: int):

@@ -188,8 +188,19 @@ def _walker_rows(pad: int):
     return np.concatenate([data, mut]), np.concatenate([length, mlen])
 
 
-@pytest.mark.parametrize("pad", [192, 2048])
-@pytest.mark.parametrize("scan,cn_window", [(True, 61), (True, 0), (False, 0)])
+def _assert_walks_equal(got, want):
+    for f in der_kernel.ParsedCerts._fields:
+        assert torch.equal(getattr(got.parsed, f), getattr(want.parsed, f)), f
+    assert torch.equal(got.serials, want.serials)
+    assert torch.equal(got.fits, want.fits)
+    assert torch.equal(got.cn_window, want.cn_window)
+
+
+# Row widths: multiples of 16 (the flat-window path, a 2 KB leaf row)
+# and odd widths, whose rows start at every offset from a 16-byte chunk.
+@pytest.mark.parametrize("pad", [192, 193, 2047, 2048])
+@pytest.mark.parametrize("scan,cn_window",
+                         [(True, 61), (True, 1), (True, 0), (False, 0)])
 def test_walker_kernel_matches_plain(cuda, pad, scan, cn_window):
     data, length = _walker_rows(pad)
     d, ln = torch.from_numpy(data).to(cuda), torch.from_numpy(length).to(cuda)
@@ -198,15 +209,43 @@ def test_walker_kernel_matches_plain(cuda, pad, scan, cn_window):
     torch.cuda.synchronize()
     assert der_kernel_cuda.LAUNCHES == before + 1
     want = der_kernel.walk_plain(d, ln, scan, cn_window)
-    for f in der_kernel.ParsedCerts._fields:
-        assert torch.equal(getattr(got.parsed, f), getattr(want.parsed, f)), f
-    assert torch.equal(got.serials, want.serials)
-    assert torch.equal(got.fits, want.fits)
-    assert torch.equal(got.cn_window, want.cn_window)
+    _assert_walks_equal(got, want)
     ok = want.parsed.ok
     assert int(ok.sum()) < ok.numel()
     if pad > 256:  # every certificate is longer than the narrow rows
         assert int(ok.sum()) > 0
+
+
+@pytest.mark.parametrize("pad", [193, 2047])
+@pytest.mark.parametrize("scan,cn_window", [(True, 61), (False, 0)])
+def test_walker_kernel_on_unaligned_views(cuda, pad, scan, cn_window):
+    """Contiguous views whose first byte is not 16-byte aligned: the
+    rows from the second on (``d[1:]`` at an odd width) and the rows
+    one byte into a flat buffer. The first lane's first chunk and the
+    last lane's last chunk then reach past the tensor; the kernel reads
+    them byte by byte and gives the plain version's results."""
+    data, length = _walker_rows(pad)
+    d, ln = torch.from_numpy(data).to(cuda), torch.from_numpy(length).to(cuda)
+    flat = torch.zeros(d.numel() + 1, dtype=torch.uint8, device=cuda)
+    flat[1:] = d.reshape(-1)
+    for view, lv in ((d[1:], ln[1:]), (flat[1:].view(d.shape), ln)):
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        got = der_kernel.walk(view, lv, scan, cn_window)
+        torch.cuda.synchronize()
+        _assert_walks_equal(got, der_kernel.walk_plain(view, lv, scan, cn_window))
+
+
+@pytest.mark.parametrize("serial_k", [1, 47, 256])
+def test_walker_kernel_serial_widths(cuda, serial_k):
+    """The staged serial window at its narrowest, at an odd width and at
+    the widest the shared-memory staging takes, over a batch whose last
+    block is partial."""
+    data, length = _walker_rows(2047)
+    d, ln = torch.from_numpy(data).to(cuda), torch.from_numpy(length).to(cuda)
+    assert d.shape[0] % 128 != 0
+    got = der_kernel.walk(d, ln, True, 61, serial_k)
+    torch.cuda.synchronize()
+    _assert_walks_equal(got, der_kernel.walk_plain(d, ln, True, 61, serial_k))
 
 
 def test_walker_kernel_checks_its_inputs(cuda):
@@ -220,6 +259,9 @@ def test_walker_kernel_checks_its_inputs(cuda):
         der_kernel_cuda.walk(d[:, ::2], ln, True)
     with pytest.raises(ValueError, match="cn_window"):
         der_kernel_cuda.walk(d, ln, True, 62)
+    for width in (0, der_kernel_cuda.MAX_SERIAL_WINDOW + 1):
+        with pytest.raises(ValueError, match="max_serial_bytes"):
+            der_kernel_cuda.walk(d, ln, True, 61, width)
     before = der_kernel_cuda.LAUNCHES
     empty = der_kernel_cuda.walk(d[:0], ln[:0], True, 61)
     assert empty.serials.shape == (0, 46) and der_kernel_cuda.LAUNCHES == before

@@ -8,7 +8,8 @@ least 200 ``core/divergence.py::grammar_mutants``, the leaves of
 ``tests/data/recorded_shard.json.gz``, the crafted edge cases of
 ``utils/dercases.py`` (issuer RDNs past ``MAX_RDNS``, extensions past
 ``MAX_EXTS``, long-form lengths 0x81-0x84, serials of 0..47 bytes,
-lengths of at most 4 and past the row) and byte-flip mutants. Two row
+lengths of at most 4 and past the row, and the boundary family that
+puts each frame at every offset modulo 16) and byte-flip mutants. Two row
 widths: 192 bytes (the JAX walker's flat window path, every
 certificate cut short) and 2048 bytes (its two-level path). Tolerance:
 exact equality.
@@ -131,3 +132,18 @@ def test_walker_matches_jax(corpus, pad):
         assert not np.asarray(fits).all()
     else:  # every certificate runs past the narrow rows
         assert not ok.any()
+
+
+def test_boundary_family_puts_frames_at_every_chunk_offset():
+    """The boundary family keeps its purpose: the walker accepts every
+    certificate of it, and the serial, issuer, issuer CN, SPKI and CRLDP
+    offsets each take all 16 values modulo 16."""
+    data, length = dercases.pack(dercases.boundary_family(), 2048)
+    got = tder.walk(torch.from_numpy(data), torch.from_numpy(length), True,
+                    CN_WINDOW)
+    p = got.parsed
+    assert p.ok.all() and p.has_crldp.all() and p.is_ca.any()
+    for f in ("serial_off", "issuer_off", "issuer_cn_off", "spki_off",
+              "crldp_off"):
+        residues = set((getattr(p, f).numpy() % 16).tolist())
+        assert residues == set(range(16)), f

@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # full size, one card, a few minutes
     python3 chip_smoke.py --profile DIR   # plus torch.profiler passes
+                                          # (a batch of each lane, 8 chunks
+                                          # of each sink configuration)
     python3 chip_smoke.py --sass DIR      # plus the kernels' ptxas/SASS report
 
 The port is ``ct_mapreduce_tpu_torch``, imported from this checkout.
@@ -45,10 +47,29 @@ Phases, none of them caught — any failure exits non-zero:
 7. a 2 GiB table (``tableBits`` 26, 2^22 buckets) prefilled to about 50%
    of its slots with random keys through the port's insert, then one
    pre-parsed batch on top; ``was_unknown`` against the oracle and
-   ``contains`` over every inserted key.
+   ``contains`` over every inserted key;
+8. the ingest sink as ct-fetch drives it: phase 5's stream (CN filter,
+   replays, expired and CA leaves) as raw get-entries pages of 1,000
+   entries (base64 ``leaf_input``/``extra_data``), 92 chunks of
+   ``batchSize`` 65,536 (6,029,312 entries, enough for ``tableBits`` 22
+   to grow) through ``AggregatorSink.store_raw_batch`` in three
+   configurations, each sink built by ``build_sink`` from its config
+   directives: unstaged at ``deviceQueueDepth`` 2, staged
+   (``chunksPerDispatch`` 8, ``stagingDepth`` 2) and pre-parsed; each
+   drain held to the oracle and to the others, every copied row byte
+   counted as pinned, the pinned row buffers no more than one beyond
+   the chunks or envelopes in flight; then one chunk's rows copied to
+   the card from pinned and from pageable memory, and the bounce copy
+   a pageable chunk would need, each timed;
+9. checkpoints on the card: the staged sink's grown table saved as ck01
+   and as a ck02 base and loaded on the card and on the CPU to the
+   sink's drain; an ``IngestModel`` with ``aggStatePath`` writing a
+   ck02 base and two one-batch segments, restored on the card to the
+   writer's ``ckpt_state_digest``, then resumed to the oracle's drain.
 
 The kernels' launch counts are set to 0 just before each main path
-(walker, pre-parsed, probe ladder) and read just after it. Prints the
+(walker, pre-parsed, probe ladder, each sink configuration) and read
+just after it. Prints the
 card line, a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1003,6 +1024,328 @@ def deployment_state(device, stream: Stream, table_bits: int,
     return out
 
 
+# -- phase 8: the ingest sink on raw get-entries pages ------------------
+
+SINK_BATCH = 1 << 16  # batchSize 65,536, the config default
+SINK_TABLE_BITS = 22  # the config default
+SINK_PAGE = 1000  # entries a get-entries page (the log client's batch)
+# Enough entries that the unique serials pass the default grow load
+# (0.7 of tableBits 22's 6,291,456 slots) at the replay share below.
+SINK_CHUNKS = 92
+SINK_REPLAY = 0.1
+# The config directives each sink is built from (``build_sink``):
+# deviceQueueDepth, chunksPerDispatch, stagingDepth, preparsedIngest.
+SINK_CONFIGS = {
+    "unstaged": dict(device_queue_depth=2),
+    "staged": dict(device_queue_depth=2, chunks_per_dispatch=8,
+                   staging_depth=2),
+    "preparsed": dict(device_queue_depth=2, preparsed_ingest=True),
+}
+
+
+def sink_config(name: str, stream: "Stream"):
+    """The deployment config of sink configuration ``name``: the
+    defaults' batchSize and tableBits, the stream's CN filter and the
+    configuration's sink directives."""
+    import dataclasses
+
+    return dataclasses.replace(
+        _config(SINK_BATCH.bit_length() - 1, SINK_TABLE_BITS, False,
+                stream.cn_prefixes()), **SINK_CONFIGS[name])
+
+
+def wire_extra_data(stream: Stream) -> list[str]:
+    """Each template's ``extra_data`` as a log serves it: the base64
+    chain holding its issuer certificate."""
+    import base64
+
+    from ct_mapreduce_tpu_torch.ingest import leaf as leaflib
+
+    return [base64.b64encode(leaflib.encode_extra_data([t.issuer_der]))
+            .decode() for t in stream.templates]
+
+
+def sink_entries(stream: Stream, extra: list[str], n: int, replay: float):
+    """``n`` of ``stream``'s lanes as a log serves them: the base64
+    ``leaf_input`` (an RFC 6962 MerkleTreeLeaf holding the X.509 entry)
+    and ``extra_data`` (``extra`` by template) of each. Returns (leaf
+    inputs, extra datas, template id, counter) per lane."""
+    import binascii
+
+    import numpy as np
+
+    data, length, tof, ctr = stream.batch(n, replay)
+    # version, leaf type, timestamp (8 bytes: 1000 ms), entry type (2),
+    # the certificate's 3-byte length.
+    head = np.zeros((n, 15), np.uint8)
+    head[:, 8] = 0x03
+    head[:, 9] = 0xE8
+    head[:, 12] = (length >> 16) & 0xFF
+    head[:, 13] = (length >> 8) & 0xFF
+    head[:, 14] = length & 0xFF
+    lis = [binascii.b2a_base64(
+        head[i].tobytes() + data[i, :length[i]].tobytes() + b"\0\0",
+        newline=False).decode() for i in range(n)]
+    eds = [extra[t] for t in tof]
+    return lis, eds, tof, ctr
+
+
+def h2d_costs(device, rows: int, width: int) -> dict:
+    """One sink chunk's rows (``rows`` x ``width`` bytes) to the card: a
+    copy from pinned memory, a copy from pageable memory, and the host
+    copy into a pinned bounce buffer that pageable rows would need first,
+    each timed on its own (CUDA events for the copies)."""
+    import numpy as np
+    import torch
+
+    pinned = torch.empty((rows, width), dtype=torch.uint8, pin_memory=True)
+    pageable = torch.from_numpy(np.ones((rows, width), np.uint8))
+    pinned.copy_(pageable)
+    ms = {}
+    for name, src in (("pinned", pinned), ("pageable", pageable)):
+        ms[f"h2d_{name}_ms"] = median(cuda_times(
+            lambda src=src: src.to(device, non_blocking=True), 9))
+    t = []
+    for _ in range(9):
+        t0 = time.perf_counter()
+        pinned.copy_(pageable)
+        t.append((time.perf_counter() - t0) * 1e3)
+    ms["bounce_copy_ms"] = median(t)
+    ms["bytes"] = rows * width
+    return ms
+
+
+def sink_run(device, name: str, chunks: int, seed: int) -> dict:
+    """Phase 8, one configuration: ``chunks`` x ``SINK_BATCH`` entries of
+    the walker-main stream as raw pages through
+    ``AggregatorSink.store_raw_batch``, the drain held to the oracle."""
+    import numpy as np
+    import torch
+
+    from ct_mapreduce_tpu_torch.ingest import sync
+    from ct_mapreduce_tpu_torch.telemetry import metrics
+
+    stream = Stream(seed, cn_filter=True)
+    sink, model = sync.build_sink(sink_config(name, stream), device=device)
+    agg = model.aggregator
+    cap0 = agg.capacity
+    n_total = chunks * SINK_BATCH
+    seen = np.zeros((n_total + 2,), bool)
+    metrics.get_sink().reset()
+    inserts = InsertCount()
+    reset_counts()
+    sink_s = gen_s = 0.0
+    lis, eds, start = [], [], 0
+    extra = wire_extra_data(stream)
+    for i in range(chunks):
+        t0 = time.perf_counter()
+        li, ed, tof, ctr = sink_entries(stream, extra, SINK_BATCH,
+                                        SINK_REPLAY)
+        seen[ctr[~stream.filtered[tof]]] = True
+        lis += li
+        eds += ed
+        t1 = time.perf_counter()
+        # Whole pages, as a log serves them; the rest waits for the next
+        # lanes (and goes as one short page at the end).
+        n_pages = len(lis) // SINK_PAGE if i + 1 < chunks else -(
+            -len(lis) // SINK_PAGE)
+        for p in range(n_pages):
+            page = slice(p * SINK_PAGE, (p + 1) * SINK_PAGE)
+            sink.store_raw_batch(sync.RawBatch(
+                lis[page], eds[page], start, "smoke-log"))
+            start += len(lis[page])
+        del lis[: n_pages * SINK_PAGE], eds[: n_pages * SINK_PAGE]
+        sink_s += time.perf_counter() - t1
+        gen_s += t1 - t0
+    t1 = time.perf_counter()
+    sink.close()
+    torch.cuda.synchronize()
+    sink_s += time.perf_counter() - t1
+    launches = read_counts()
+    insert_calls = inserts.close()
+    snap = metrics.get_sink().snapshot()
+    counters, samples = snap["counters"], snap["samples"]
+
+    t0 = time.perf_counter()
+    drained = agg.drain()
+    drain_s = time.perf_counter() - t0
+    counts, crls, dns = _oracle_snapshot(stream, seen)
+    check(drained.counts == counts, f"sink {name}: drained counts differ "
+          "from the oracle")
+    check(drained.crls == crls and drained.dns == dns,
+          f"sink {name}: drained CRL or DN sets differ from the oracle")
+    check(drained.total == int(seen.sum()), f"sink {name}: total differs")
+    check(insert_calls > 0, f"sink {name}: no bucket insert")
+    check(launches["sha256_fp"] > 0, f"sink {name}: K1 never ran")
+    check(name == "preparsed" or launches["der_walk"] > 0,
+          f"sink {name}: K3 never ran")
+    check(agg.capacity > cap0, f"sink {name}: the table never grew")
+    h2d = counters.get("ingest.h2d_bytes", 0.0)
+    pinned = counters.get("ingest.h2d_pinned_bytes", 0.0)
+    if name != "preparsed":
+        check(h2d > 0 and pinned == h2d,
+              f"sink {name}: {h2d - pinned} of {h2d} copied bytes not pinned")
+    pool = sink._row_bufs
+    if name != "preparsed":
+        # One buffer for each chunk or envelope in flight and one being
+        # filled, all pinned, none made after the first fill.
+        keep = (sink.staging_depth if sink.chunks_per_dispatch > 1
+                else sink.device_queue_depth)
+        check(1 <= pool.allocated == pool.live <= keep + 1,
+              f"sink {name}: {pool.allocated} row buffers made, "
+              f"{pool.live} kept; want at most {keep + 1}")
+        check(all(b.is_pinned() for b in pool._free),
+              f"sink {name}: a row buffer is not pinned")
+
+    def p50(key):
+        v = samples.get(key)
+        return v["p50"] if v else None
+
+    out = {
+        "config": name, "sink_config": SINK_CONFIGS[name],
+        "entries": n_total,
+        "chunks": chunks, "unique_serials": int(seen.sum()),
+        "entries_per_s": n_total / sink_s, "sink_s": sink_s,
+        "gen_s": gen_s, "drain_s": drain_s,
+        "capacity_start": cap0, "capacity_end": agg.capacity,
+        "launches": launches, "insert_calls": insert_calls,
+        "h2d_bytes": h2d, "h2d_pinned_bytes": pinned,
+        "row_buffers": pool.allocated,
+        "row_buffer_bytes": pool.capacity,
+        "p50_s": {"decode": p50("ct-fetch.decodeBatch"),
+                  "submit": p50("ct-fetch.storeCertificate"),
+                  "h2d_enqueue": p50("ct-fetch.h2dSubmit"),
+                  "complete": p50("ct-fetch.completeBatch")},
+        "metrics": dict(agg.metrics),
+    }
+    print(f"phase 8 sink {name}: {n_total} entries as {SINK_PAGE}-entry "
+          f"pages, {out['unique_serials']} unique, drain == oracle, table "
+          f"{cap0} -> {agg.capacity} slots; launches "
+          f"{launches['sha256_fp']} K1, {launches['der_walk']} K3, "
+          f"{insert_calls} inserts; {out['entries_per_s']:.0f} entries/s "
+          f"(p50 s a chunk: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in out["p50_s"].items()
+              if v is not None)
+          + f"); {pinned:.0f} of {h2d:.0f} copied bytes pinned", flush=True)
+    return out, model, drained
+
+
+# -- phase 9: checkpoints on the card -----------------------------------
+
+def _ckpt_dir() -> str:
+    path = os.path.join(HERE, "build", "smoke_ckpt")
+    if os.path.isdir(path):
+        for f in os.listdir(path):
+            os.unlink(os.path.join(path, f))
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def checkpoints(device, staged_model, staged_drain, seed: int) -> dict:
+    """(i) the staged sink's grown table saved as ck01 and as a ck02
+    base, each loaded on the card and on the CPU to the same drain; (ii)
+    an ``IngestModel`` with ``aggStatePath`` writing a ck02 base and two
+    segments of one batch each; (iii) that chain restored on the card
+    to the writer's digest; (iv) the restored model resuming to the
+    oracle's drain."""
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch.agg import ckpt
+    from ct_mapreduce_tpu_torch.agg.aggregator import (
+        TorchAggregator, ckpt_state_digest)
+    from ct_mapreduce_tpu_torch.models.ingest_model import IngestModel
+    from ct_mapreduce_tpu_torch.telemetry import metrics
+
+    d = _ckpt_dir()
+    out = {"saves": {}, "loads": {}}
+    agg = staged_model.aggregator
+    for mode in ("ck01", "ck02"):
+        path = os.path.join(d, f"staged-{mode}.npz")
+        agg.configure_checkpointing(mode=mode)
+        t0 = time.perf_counter()
+        agg.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        out["saves"][mode] = {"s": save_s, "bytes": os.path.getsize(path),
+                              "slots": agg.capacity}
+        check((mode == "ck02") == os.path.exists(ckpt.manifest_path(path)),
+              f"{mode}: a manifest where there should be none, or none "
+              "where there should be one")
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            r = TorchAggregator(capacity=1 << 10, device=dev)
+            r.load_checkpoint(path)
+            load_s = time.perf_counter() - t0
+            check(r.drain() == staged_drain,
+                  f"{mode} loaded on {dev}: the drain differs from the sink's")
+            out["loads"][f"{mode}@{dev}"] = load_s
+            del r
+    print(f"phase 9 (i): the staged sink's {agg.capacity}-slot table saved "
+          + ", ".join(f"{m} {v['bytes']} B in {v['s']:.2f} s"
+                      for m, v in out["saves"].items())
+          + "; loaded " + ", ".join(f"{k} in {v:.2f} s"
+                                    for k, v in out["loads"].items())
+          + "; every drain == the sink's", flush=True)
+
+    stream = Stream(seed + 1, cn_filter=True)
+    path = os.path.join(d, "model.npz")
+    cfg = _config(SINK_BATCH.bit_length() - 1, SINK_TABLE_BITS, False,
+                  stream.cn_prefixes())
+    cfg.agg_state_path = path
+    cfg.checkpoint_mode = "ck02"
+    writer = IngestModel.from_config(cfg, device=device)
+    idx_of = stream.issuer_indices(writer)
+    batches = [stream.batch(SINK_BATCH, 0.3) for _ in range(5)]
+    seen = np.zeros((stream.next_counter + 1,), bool)
+    metrics.get_sink().reset()
+    tick_s = []
+    for data, length, tof, ctr in batches[:3]:
+        writer.ingest_packed(data, length, idx_of[tof],
+                             np.ones((SINK_BATCH,), bool))
+        seen[ctr[~stream.filtered[tof]]] = True
+        t0 = time.perf_counter()
+        writer.save()
+        tick_s.append(time.perf_counter() - t0)
+    written = metrics.get_sink().snapshot()["counters"].get(
+        "ckpt.segments_written", 0)
+    chain = ckpt.resolve_chain(path)
+    check(written == 2 and len(chain.segments) == 2,
+          f"ck02: {written} segments written, {len(chain.segments)} "
+          "in the chain; want 2")
+    want = ckpt_state_digest(writer.aggregator)
+    t0 = time.perf_counter()
+    restored = IngestModel.from_config(cfg, device=device)
+    restore_s = time.perf_counter() - t0
+    check(restored.aggregator.table.rows.is_cuda,
+          "the restored table is not on the card")
+    check(ckpt_state_digest(restored.aggregator) == want,
+          "the restored chain's digest differs from the writer's")
+    for data, length, tof, ctr in batches[3:]:
+        restored.ingest_packed(data, length, idx_of[tof],
+                               np.ones((SINK_BATCH,), bool))
+        seen[ctr[~stream.filtered[tof]]] = True
+    snap = restored.drain()
+    counts, crls, dns = _oracle_snapshot(stream, seen)
+    check(snap.counts == counts and snap.crls == crls and snap.dns == dns,
+          "the resumed model's drain differs from the oracle")
+    out.update({
+        "base_s": tick_s[0], "segment_s": tick_s[1:], "restore_s": restore_s,
+        "base_bytes": os.path.getsize(path),
+        "segment_bytes": [os.path.getsize(ckpt.segment_path(path, i))
+                          for i in (1, 2)],
+        "segment_rows": [s[0]["devRows"] + s[0]["hostRows"]
+                         for s in chain.segments],
+    })
+    print(f"phase 9 (ii-iv): ck02 base {out['base_bytes']} B in "
+          f"{tick_s[0]:.2f} s, segments {out['segment_bytes']} B "
+          f"({out['segment_rows']} rows) in "
+          + ", ".join(f"{t:.3f}" for t in tick_s[1:])
+          + f" s; restored on the card in {restore_s:.2f} s to the writer's "
+          f"digest; resumed 2 batches to the oracle's drain", flush=True)
+    for f in os.listdir(d):
+        os.unlink(os.path.join(d, f))
+    return out
+
+
 def device_busy(trace_path: str) -> tuple[float, dict]:
     """From a torch.profiler Chrome trace: the microseconds in which the
     device ran a kernel, copy or memset (the union of their spans, so
@@ -1022,13 +1365,31 @@ def device_busy(trace_path: str) -> tuple[float, dict]:
     return busy, by_kernel
 
 
+def _profiled(run, path: str) -> tuple[float, float, dict]:
+    """torch.profiler around ``run()`` (synchronised at the end); its
+    Chrome trace goes to ``path``. Returns (wall s, device busy s, per
+    kernel name its total us and count)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    busy_us, by_kernel = device_busy(path)
+    return wall, busy_us / 1e6, by_kernel
+
+
 def profile_step(device, stream: Stream, batch_log2: int, table_bits: int,
                  preparsed: bool, out_dir: str) -> dict:
     """torch.profiler over one warm batch of a lane: device time by
     kernel, and the device's busy share of the call's wall time."""
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ct_mapreduce_tpu_torch.models.ingest_model import IngestModel
 
@@ -1042,18 +1403,10 @@ def profile_step(device, stream: Stream, batch_log2: int, table_bits: int,
     data, length, tof, _ = batches[0]
     model.ingest_packed(data, length, idx_of[tof], np.ones((n,), bool))
     data, length, tof, _ = batches[1]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.ingest_packed(data, length, idx_of[tof], np.ones((n,), bool))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"{lane}_step_trace.json")
-    prof.export_chrome_trace(path)
-    busy_us, by_kernel = device_busy(path)
-    busy_s = busy_us / 1e6
+    wall, busy_s, by_kernel = _profiled(
+        lambda: model.ingest_packed(data, length, idx_of[tof],
+                                    np.ones((n,), bool)),
+        os.path.join(out_dir, f"{lane}_step_trace.json"))
     rows = sorted(((t, k, c) for k, (t, c) in by_kernel.items()),
                   reverse=True)
     out = {"lane": lane, "wall_s": wall, "device_busy_s": busy_s,
@@ -1068,14 +1421,49 @@ def profile_step(device, stream: Stream, batch_log2: int, table_bits: int,
     return out
 
 
+def profile_sink(device, name: str, seed: int, out_dir: str) -> dict:
+    """torch.profiler over one sink configuration taking 8 chunks of
+    whole pages (one staged envelope) after 8 chunks of warm-up, closed
+    at the end: the device's busy share of the sink's wall time."""
+    from ct_mapreduce_tpu_torch.ingest import sync
+
+    stream = Stream(seed, cn_filter=True)
+    sink, _ = sync.build_sink(sink_config(name, stream), device=device)
+    extra = wire_extra_data(stream)
+    n = 8 * -(-SINK_BATCH // SINK_PAGE) * SINK_PAGE
+
+    def feed(lis, eds):
+        for p in range(0, len(lis), SINK_PAGE):
+            sink.store_raw_batch(sync.RawBatch(
+                lis[p:p + SINK_PAGE], eds[p:p + SINK_PAGE], p, "smoke-log"))
+        sink.close()
+
+    feed(*sink_entries(stream, extra, n, SINK_REPLAY)[:2])
+    lis, eds = sink_entries(stream, extra, n, SINK_REPLAY)[:2]
+    wall, busy_s, by_kernel = _profiled(
+        lambda: feed(lis, eds),
+        os.path.join(out_dir, f"sink_{name}_trace.json"))
+    rows = sorted(((t, k, c) for k, (t, c) in by_kernel.items()),
+                  reverse=True)
+    out = {"config": name, "entries": n, "wall_s": wall,
+           "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / wall,
+           "top_device_us": [[k, round(t, 1), c] for t, k, c in rows[:8]]}
+    print(f"profile sink {name}: {n} entries: wall {wall:.3f} s, device "
+          f"busy {busy_s:.4f} s (idle share {out['device_idle_share']:.3f})",
+          flush=True)
+    return out
+
+
 def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
-                 preparsed: dict) -> dict:
+                 preparsed: dict, sinks: dict) -> dict:
     """The ``{"kernels": [...]}`` record: every kernel of the port with
     its launches on each main path and this run's measurements."""
     from ct_mapreduce_tpu_torch.tools import mosaic_probe as mp
 
     paths = {"walker": walker["launches"], "preparsed": preparsed["launches"],
              "probe": probe["ladder_launches"]}
+    paths.update({f"sink_{name}": sinks[name]["launches"]
+                  for name in SINK_CONFIGS})
 
     def by_path(key, i=None):
         return {p: (c[key] if i is None else c[key][i]) for p, c in paths.items()}
@@ -1119,8 +1507,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=20261017,
                     help="seed of every input the run makes")
     ap.add_argument("--profile", default="",
-                    help="also profile one batch of each lane with "
-                         "torch.profiler; the traces go to this directory")
+                    help="also profile one batch of each lane and 8 chunks "
+                         "of each sink configuration with torch.profiler; "
+                         "the traces go to this directory")
     ap.add_argument("--sass", default="",
                     help="also report each kernel library's registers "
                          "(-Xptxas -v) and SASS opcode counts (cuobjdump); "
@@ -1167,15 +1556,42 @@ def main(argv=None) -> int:
     print("phase 6: the walker and pre-parsed lanes drain the same", flush=True)
     big = deployment_state(device, Stream(args.seed), BIG_TABLE_BITS,
                            BATCH_LOG2, 0.5, args.seed)
+    torch.cuda.empty_cache()
+    sinks, drains = {}, {}
+    for name in SINK_CONFIGS:
+        out, model, drains[name] = sink_run(device, name, SINK_CHUNKS,
+                                            args.seed)
+        sinks[name] = out
+        if name == "staged":
+            staged_model = model
+        else:
+            del model
+        torch.cuda.empty_cache()
+    check(drains["unstaged"] == drains["staged"] == drains["preparsed"],
+          "the three sink configurations drain differently")
+    # One sink chunk: the whole pages that reach the flush size.
+    sinks["h2d_chunk"] = h2d_costs(
+        device, -(-SINK_BATCH // SINK_PAGE) * SINK_PAGE, Stream.PAD)
+    print("phase 8: the three sink configurations drain the same; one "
+          "chunk's rows to the card: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sinks["h2d_chunk"].items()
+              if k != "bytes"), flush=True)
+    ckpts = checkpoints(device, staged_model, drains["staged"], args.seed)
+    del staged_model
+    torch.cuda.empty_cache()
     prof = None
     if args.profile:
         torch.cuda.empty_cache()
         prof = [profile_step(device, Stream(args.seed, cn_filter=True),
                              BATCH_LOG2, TABLE_BITS, pre, args.profile)
                 for pre in (False, True)]
+        for name in SINK_CONFIGS:
+            torch.cuda.empty_cache()
+            prof.append(profile_sink(device, name, args.seed, args.profile))
     details = {"card": card, "builds": builds, "fingerprint": k1,
                "walker_kernel": k3, "probe": probe, "lanes": lanes,
-               "big_table": big, "profile": prof, "sass": sass,
+               "big_table": big, "sinks": sinks, "checkpoints": ckpts,
+               "profile": prof, "sass": sass,
                "wall_s": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -1183,7 +1599,7 @@ def main(argv=None) -> int:
             json.dump(details, f, indent=1)
     print(json.dumps(details), flush=True)
     print(json.dumps(kernels_line(k1, k3, probe, lanes["walker"],
-                                  lanes["preparsed"])), flush=True)
+                                  lanes["preparsed"], sinks)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

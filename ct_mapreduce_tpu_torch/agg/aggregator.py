@@ -24,18 +24,31 @@ before counting (`_device_known_flags`), the device fold checks the
 host sets on unknown lanes (`_consume_out`, `_fold_preparsed`), and
 `drain()` subtracts the host∩device overlap in one batched probe.
 
-Left out so far: the staged multi-chunk walker lane, checkpoints,
-filter capture, signature verification and the ingest sink's overlap
-threads.
+Checkpoints are the JAX package's, file for file: a ck01 ``.npz``
+base (``_write_npz``: the same field names, dtypes and sorted JSON) and
+CTMRCK02 delta segments (:mod:`.ckpt`), so either package loads the
+other's. The fold paths feed the same dirty log (``_ckpt_record_row``,
+``_ckpt_record_host``), and the same events poison it (a serial-less
+fold, a grow, the segment budget), after which the next save writes a
+full base. Table rows leave the card in one copy under ``_table_lock``.
+
+Left out so far: filter capture (a checkpoint that carries one raises,
+ROADMAP item 10), the open-addressing layout (item 8), signature
+verification (item 11; its per-issuer vectors ride the checkpoints as
+zeros) and the ingest sink's overlap threads.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
+import os
 import sys
+import tempfile
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from datetime import datetime, timezone
 from typing import Optional
 from urllib.parse import urlparse
@@ -43,11 +56,13 @@ from urllib.parse import urlparse
 import numpy as np
 import torch
 
+from ct_mapreduce_tpu_torch.agg import ckpt
 from ct_mapreduce_tpu_torch.core import der as hostder
 from ct_mapreduce_tpu_torch.core import packing
 from ct_mapreduce_tpu_torch.core.types import ExpDate, Issuer
 from ct_mapreduce_tpu_torch.device import resolve_device
 from ct_mapreduce_tpu_torch.ops import buckettable, pipeline
+from ct_mapreduce_tpu_torch.telemetry import trace
 from ct_mapreduce_tpu_torch.telemetry.metrics import incr_counter, set_gauge
 
 #: Longest issuer-CN prefix head the device-side filter compares (the
@@ -91,6 +106,25 @@ class IssuerRegistry:
                 self._by_issuer_id[iid] = idx
             self._by_der[issuer_der] = idx
             return idx
+
+    def assign_issuer(self, issuer: Issuer) -> int:
+        """Index for an already-constructed :class:`Issuer` identity (no
+        DER in hand: chain replay, merging checkpoints)."""
+        with self._lock:
+            iid = issuer.id()
+            idx = self._by_issuer_id.get(iid)
+            if idx is None:
+                idx = len(self._issuers)
+                self._issuers.append(issuer)
+                self._by_issuer_id[iid] = idx
+            return idx
+
+    def ids_from(self, start: int) -> list[str]:
+        """Issuer-id strings for indices >= ``start``, in index order —
+        the registry's append-only suffix since a shadow length was
+        taken (CTMRCK02 segment diffs)."""
+        with self._lock:
+            return [iss.id() for iss in self._issuers[start:]]
 
     def issuer_at(self, idx: int) -> Issuer:
         return self._issuers[idx]
@@ -146,43 +180,46 @@ class _PreparsedPlan:
 
 class _Pending:
     """A submitted ingest whose device work is queued on the stream;
-    ``complete()`` reads the results back and folds them. Completion
-    is FIFO and claimed before the fold, so a fold that raises is never
-    re-applied."""
+    ``complete()`` reads the results back and folds them. Completion is
+    FIFO and claimed before the fold, so a fold that raises is never
+    re-applied; every fold holds the aggregator's fold lock."""
 
     def __init__(self, agg: "TorchAggregator", res: IngestResult) -> None:
         self._agg = agg
         self._res = res
         self._done = False
+        self._lock = threading.Lock()
 
     def _fold(self) -> None:
         raise NotImplementedError
 
     def complete(self) -> IngestResult:
-        if self._done:
+        with self._lock:
+            if self._done:
+                return self._res
+            self._done = True
+            agg = self._agg
+            with trace.span("device.fold", cat="device"), agg._fold_lock:
+                with contextlib.suppress(ValueError):
+                    agg._outstanding.remove(self)
+                agg._inflight_lanes = max(
+                    0, agg._inflight_lanes - len(self._res.was_unknown))
+                self._fold()
+                incr_counter("aggregator", "batches")
             return self._res
-        self._done = True
-        agg = self._agg
-        if self in agg._outstanding:
-            agg._outstanding.remove(self)
-        agg._inflight_lanes = max(
-            0, agg._inflight_lanes - len(self._res.was_unknown))
-        self._fold()
-        incr_counter("aggregator", "batches")
-        return self._res
 
 
 class PendingIngest(_Pending):
     """The blocking half of :meth:`TorchAggregator.ingest_packed_submit`:
     every chunk's walker step is queued; ``complete()`` reads each
     chunk's packed outputs back, folds them and runs the exact host
-    lane."""
+    lane. ``host_data`` holds the rows on the host by global position."""
 
     def __init__(self, agg: "TorchAggregator", chunks, res: IngestResult,
-                 data: np.ndarray, length: np.ndarray) -> None:
+                 host_data: np.ndarray, length: np.ndarray) -> None:
         super().__init__(agg, res)
         self._chunks = chunks  # [(batch, device_pos, lanes, out)]
-        self._data = data
+        self._data = host_data
         self._length = length
 
     def _fold(self) -> None:
@@ -213,6 +250,60 @@ class PendingPreparsed(_Pending):
         self._agg._fold_preparsed(self._out, self._plan, self._res)
 
 
+class _NpStagedChunkOut:
+    """One chunk's slice of a staged envelope's readback, already on the
+    host: ``packed`` is one int32[7, B] row of the envelope's [K, 7, B]
+    (:func:`pipeline.pack_lane_words` layout), ``serials`` its
+    uint8[B, 46] serial windows (None when serials are not wanted) and
+    ``issuer_unknown_counts`` the counts it contributes.
+    ``_consume_out`` folds it through the same code as a walker step."""
+
+    def __init__(self, packed: np.ndarray, serials: Optional[np.ndarray],
+                 issuer_unknown_counts: np.ndarray) -> None:
+        self.packed = packed
+        self.serials = serials
+        self.issuer_unknown_counts = issuer_unknown_counts
+
+
+class PendingStaged(_Pending):
+    """The blocking half of :meth:`TorchAggregator.ingest_staged_submit`:
+    one K-chunk walker envelope. ``complete()`` reads the envelope's
+    packed [K, 7, B] array, its summed issuer counts and (only when
+    serials are wanted) its serial windows back in one copy each, then
+    folds the K chunks through ``_consume_out`` and ``_host_lanes``."""
+
+    def __init__(self, agg: "TorchAggregator", out, chunks,
+                 res: IngestResult, chunk_width: int) -> None:
+        super().__init__(agg, res)
+        self._out = out  # pipeline.StagedStepOut
+        self._chunks = chunks  # [(batch, device_pos, lanes)]
+        self._chunk_width = int(chunk_width)  # pos = k * width + lane
+
+    def _fold(self) -> None:
+        agg, res = self._agg, self._res
+        P = self._out.packed.cpu().numpy()  # the one packed read
+        counts = self._out.issuer_unknown_counts.cpu().numpy()
+        serials = (self._out.serials.cpu().numpy() if agg.want_serials
+                   else None)
+        nothing = np.zeros((0,), np.int32)
+        host_lane_total = 0
+        for k, (batch, device_pos, lanes) in enumerate(self._chunks):
+            # The counts are summed over the envelope on the device; the
+            # first chunk's fold adds them (the totals are plain sums).
+            out_k = _NpStagedChunkOut(
+                P[k], serials[k] if serials is not None else None,
+                counts if k == 0 else nothing)
+            host_pos = agg._consume_out(batch, out_k, device_pos, res, lanes)
+            host_lane_total += agg._host_lanes(
+                host_pos,
+                lambda pos, _b=batch, _k=k: _b.data[
+                    pos - _k * self._chunk_width,
+                    : _b.length[pos - _k * self._chunk_width]].tobytes(),
+                res)
+        agg.metrics["host_lane"] += host_lane_total
+        res.host_lane_count = host_lane_total
+
+
 @dataclass
 class AggregateSnapshot:
     """Drained reduce state — the material of storage-statistics."""
@@ -221,23 +312,50 @@ class AggregateSnapshot:
     crls: dict[str, set[str]]  # issuerID → CRL DP URLs
     dns: dict[str, set[str]]  # issuerID → issuer DN strings
     total: int = 0
+    # Per-issuer signature-verification verdicts; empty until the verify
+    # lane is ported.
+    verified: dict[str, int] = field(default_factory=dict)
+    failed: dict[str, int] = field(default_factory=dict)
+
+    def issuers(self) -> list[str]:
+        out = {iss for iss, _ in self.counts}
+        out.update(self.crls)
+        out.update(self.dns)
+        return sorted(out)
 
 
-def _pack_out(out: pipeline.StepOut) -> torch.Tensor:
-    """A walker step's small per-lane outputs as ONE int32[7, B] tensor,
-    so the host pays one device-to-host copy for them: row 0 the flag
-    word (host_lane | was_unknown<<1 | filtered_ca<<2 |
-    filtered_expired<<3 | filtered_cn<<4 | probe_overflow<<5), rows 1-6
-    not_after_hour, serial_len, crldp_off, crldp_len, issuer_name_off,
-    issuer_name_len (the JAX aggregator's layout)."""
-    flags = torch.zeros_like(out.not_after_hour)
-    for bit, f in enumerate((out.host_lane, out.was_unknown,
-                             out.filtered_ca, out.filtered_expired,
-                             out.filtered_cn, out.probe_overflow)):
-        flags |= f.to(torch.int32) << bit
-    return torch.stack([flags, out.not_after_hour, out.serial_len,
-                        out.crldp_off, out.crldp_len, out.issuer_name_off,
-                        out.issuer_name_len], dim=0)
+def ckpt_state_digest(agg: "TorchAggregator") -> str:
+    """Canonical SHA-256 over the complete restorable aggregate state
+    (sorted table rows, fill, registry, counters, host and metadata
+    sets): the restore-parity oracle, a copy of the JAX package's
+    ``tune.harness.ckpt_state_digest``, equal for equal state in either
+    package."""
+    with agg._table_lock:
+        keys, meta = agg._drain_table()
+    rows = np.concatenate(
+        [keys.astype(np.uint32), meta.astype(np.uint32).reshape(-1, 1)],
+        axis=1)
+    order = np.lexsort(rows.T[::-1])
+    h = hashlib.sha256()
+    h.update(rows[order].tobytes())
+    h.update(str(int(agg._table_fill)).encode())
+    h.update(agg.registry.to_json().encode())
+    h.update(np.trim_zeros(agg.issuer_totals, "b").tobytes())
+    h.update(np.trim_zeros(agg.verify_verified, "b").tobytes())
+    h.update(np.trim_zeros(agg.verify_failed, "b").tobytes())
+    for (i, e), ss in sorted(agg.host_serials.items()):
+        h.update(f"h{i},{e};".encode())
+        for sb in sorted(ss):
+            h.update(sb)
+    for i, urls in sorted(agg.crl_sets.items()):
+        h.update(f"c{i};".encode())
+        for u in sorted(urls):
+            h.update(u.encode())
+    for i, dns in sorted(agg.dn_sets.items()):
+        h.update(f"d{i};".encode())
+        for dn in sorted(dns):
+            h.update(dn.encode())
+    return h.hexdigest()
 
 
 class TorchAggregator:
@@ -254,6 +372,15 @@ class TorchAggregator:
         device=None,
     ) -> None:
         self.device = resolve_device(device)
+        # Serializes host-state fold-ins (the pendings' folds,
+        # _consume_out, _host_lanes) across threads.
+        self._fold_lock = threading.Lock()
+        # Guards self.table swaps against concurrent reads (a checkpoint
+        # save or a membership probe from another thread). Lock order
+        # where both are held: _fold_lock, then _table_lock.
+        self._table_lock = threading.RLock()
+        # Serializes whole checkpoint writes.
+        self._save_lock = threading.Lock()
         # The ceiling rounds DOWN to a capacity the bucket layout can
         # build (24·2^k slots), so maybe_grow's at-ceiling guard fires
         # instead of rebuilding at the same size on every batch.
@@ -288,7 +415,11 @@ class TorchAggregator:
         self._dn_raw_seen: set[tuple[int, bytes]] = set()
         # Device-side per-issuer unknown totals (running).
         self.issuer_totals = np.zeros((packing.MAX_ISSUERS,), np.int64)
-        # Submitted-but-not-completed ingests of both lanes (FIFO).
+        # Per-issuer embedded-SCT verdict counts: zeros until the verify
+        # lane is ported; checkpoints carry them either way.
+        self.verify_verified = np.zeros((packing.MAX_ISSUERS,), np.int64)
+        self.verify_failed = np.zeros((packing.MAX_ISSUERS,), np.int64)
+        # Submitted-but-not-completed ingests of every lane (FIFO).
         self._outstanding: list[_Pending] = []
         # False until the first device step: lets the host lane skip
         # cross-domain membership probes for host-only usage.
@@ -301,6 +432,26 @@ class TorchAggregator:
             "filtered_cn": 0, "host_lane": 0, "parse_errors": 0, "overflow": 0,
             "dispatch_spill": 0,
         }
+        # Incremental checkpoints (CTMRCK02, agg/ckpt.py): the per-tick
+        # dirty log the fold paths append to under _fold_lock, armed
+        # only after a save/load established a durable base at
+        # _ckpt_path. Any event that breaks O(churn) replay (a grow, a
+        # serial-less fold, a recorded/inserted mismatch, the segment
+        # budget) poisons the log, and the next save writes a full base.
+        self._ckpt_knobs = None
+        self._ckpt_track = False
+        self._ckpt_dirty_lost = False
+        self._ckpt_rows: list[tuple[int, int, bytes]] = []
+        self._ckpt_host_adds: list[tuple[int, int, bytes]] = []
+        self._ckpt_row_bytes = 0
+        self._ckpt_dev_inserted = 0
+        self._ckpt_path = ""
+        self._ckpt_base_sha = ""
+        self._ckpt_tip_token = ""
+        self._ckpt_chain_len = 0
+        # Copies of the small O(issuers) structures at the last durable
+        # tick, diffed against at the next segment save.
+        self._ckpt_shadow: Optional[dict] = None
 
     # -- table state -----------------------------------------------------
     def _make_table(self, capacity: int) -> buckettable.BucketTable:
@@ -317,13 +468,15 @@ class TorchAggregator:
         keys = torch.from_numpy(
             np.ascontiguousarray(fps, np.uint32).view(np.int32)).to(
                 self.device)
-        return buckettable.contains(
-            self.table, keys, max_probes=self.max_probes).cpu().numpy()
+        with self._table_lock:
+            return buckettable.contains(
+                self.table, keys, max_probes=self.max_probes).cpu().numpy()
 
     # -- load-factor policy ---------------------------------------------
     def _table_fill_exact(self) -> int:
         """Occupied-slot count, synced from the device."""
-        return int(self.table.count)
+        with self._table_lock:
+            return int(self.table.count)
 
     def _bulk_reinsert(self, keys: np.ndarray, meta: np.ndarray) -> int:
         """Re-hash drained rows into the (fresh) table in chunks of up to
@@ -343,10 +496,11 @@ class TorchAggregator:
         v = torch.from_numpy(np.pad(np.ones((n,), bool), (0, pad))).to(
             self.device).view(n_chunks, chunk)
         ovf = torch.zeros((), dtype=torch.int64, device=self.device)
-        for i in range(n_chunks):
-            self.table, _wu, o = pipeline.table_insert(
-                self.table, k[i], m[i], v[i], max_probes=self.max_probes)
-            ovf += o.sum()
+        with self._table_lock:
+            for i in range(n_chunks):
+                self.table, _wu, o = pipeline.table_insert(
+                    self.table, k[i], m[i], v[i], max_probes=self.max_probes)
+                ovf += o.sum()
         return int(ovf)
 
     def _grow_target(self, need: int) -> int:
@@ -382,26 +536,33 @@ class TorchAggregator:
         restored and the error raised."""
         self.complete_outstanding()
         t0 = time.perf_counter()
-        keys, meta = self._drain_table()
-        old_capacity = self.capacity
-        saved = self.table
-        cap = new_capacity
-        while True:
-            self.table = self._make_table(cap)
-            actual = self.table.capacity
-            overflow = self._bulk_reinsert(keys, meta)
-            if not overflow:
-                break
-            if cap >= self.max_capacity:
-                self.table = saved
-                raise RuntimeError(
-                    f"table grow overflowed {overflow} rows even at "
-                    f"the max capacity {cap}; original table restored "
-                    "(pathological key distribution)"
-                )
-            cap = min(cap * 2, self.max_capacity)
-        self.capacity = actual
+        # The table lock only after the completes above (fold → table is
+        # the lock order).
+        with self._table_lock:
+            keys, meta = self._drain_table()
+            old_capacity = self.capacity
+            saved = self.table
+            cap = new_capacity
+            while True:
+                self.table = self._make_table(cap)
+                actual = self.table.capacity
+                overflow = self._bulk_reinsert(keys, meta)
+                if not overflow:
+                    break
+                if cap >= self.max_capacity:
+                    self.table = saved
+                    raise RuntimeError(
+                        f"table grow overflowed {overflow} rows even at "
+                        f"the max capacity {cap}; original table restored "
+                        "(pathological key distribution)"
+                    )
+                cap = min(cap * 2, self.max_capacity)
+            self.capacity = actual
         self._table_fill = len(keys)
+        # A rehash changes the table's capacity: a delta chain replayed
+        # onto the pre-grow base would restore the old capacity, so the
+        # next checkpoint must anchor.
+        self._ckpt_mark_dirty_lost("table grow")
         incr_counter("aggregator", "table_grow")
         set_gauge("aggregator", "table_load",
                   value=self._table_fill / self.capacity)
@@ -435,12 +596,117 @@ class TorchAggregator:
         now = self._fixed_now or datetime.now(timezone.utc)
         return int(now.timestamp()) // 3600
 
+    def verify_counts(self) -> dict[str, tuple[int, int]]:
+        """issuerID → (verified, failed), nonzero rows only."""
+        out: dict[str, tuple[int, int]] = {}
+        nz = np.nonzero(self.verify_verified | self.verify_failed)[0]
+        for i in nz:
+            i = int(i)
+            if i < len(self.registry):
+                out[self.registry.issuer_at(i).id()] = (
+                    int(self.verify_verified[i]), int(self.verify_failed[i]))
+        return out
+
+    # -- incremental checkpoints (CTMRCK02, agg/ckpt.py) -----------------
+    def configure_checkpointing(self, mode: str = "", max_chain: int = 0,
+                                segment_budget_mb: int = 0) -> None:
+        """Pin the checkpoint knobs (the ``checkpointMode`` /
+        ``ckptMaxChain`` / ``ckptSegmentBudgetMB`` directives). Unset
+        values fall through the knob ladder (CTMR_* env > platform
+        profile > default), which also applies lazily at the first
+        save when this is never called."""
+        self._ckpt_knobs = ckpt.resolve_ckpt(
+            mode=mode, max_chain=max_chain,
+            segment_budget_mb=segment_budget_mb)
+
+    def _ckpt_resolved(self) -> "ckpt.CkptKnobs":
+        if self._ckpt_knobs is None:
+            self._ckpt_knobs = ckpt.resolve_ckpt()
+        return self._ckpt_knobs
+
+    def _ckpt_record_row(self, issuer_idx: int, exp_hour: int,
+                         serial: bytes) -> None:
+        """Dirty-log one device-table insert (fold paths, under the
+        fold lock). No-op until a save or load arms tracking."""
+        if not self._ckpt_track or self._ckpt_dirty_lost:
+            return
+        self._ckpt_rows.append((issuer_idx, exp_hour, serial))
+        self._ckpt_note_bytes(len(serial))
+
+    def _ckpt_record_host(self, issuer_idx: int, exp_hour: int,
+                          serial: bytes) -> None:
+        """Dirty-log one host-lane first-seen serial (under the fold
+        lock; _host_dedup already deduplicated it)."""
+        if not self._ckpt_track or self._ckpt_dirty_lost:
+            return
+        self._ckpt_host_adds.append((issuer_idx, exp_hour, serial))
+        self._ckpt_note_bytes(len(serial))
+
+    def _ckpt_note_bytes(self, serial_len: int) -> None:
+        self._ckpt_row_bytes += serial_len + ckpt.REC.size
+        budget = self._ckpt_resolved().segment_budget_mb << 20
+        if self._ckpt_row_bytes > budget:
+            # A tick whose churn rivals the corpus gains nothing from a
+            # delta; cap the log so memory stays bounded.
+            self._ckpt_mark_dirty_lost("segment budget exceeded")
+
+    def _ckpt_note_inserted(self, n: int) -> None:
+        if self._ckpt_track and not self._ckpt_dirty_lost:
+            self._ckpt_dev_inserted += n
+
+    def _ckpt_mark_dirty_lost(self, why: str) -> None:
+        """Poison the dirty log: the next save anchors (full base).
+        Recording stops and the log drops at once."""
+        if not self._ckpt_track or self._ckpt_dirty_lost:
+            return
+        self._ckpt_dirty_lost = True
+        self._ckpt_clear_log()
+        incr_counter("ckpt", "dirty_lost")
+        print(f"checkpoint dirty log dropped ({why}): next save "
+              "writes a full base", file=sys.stderr)
+
+    def _ckpt_clear_log(self) -> None:
+        self._ckpt_rows = []
+        self._ckpt_host_adds = []
+        self._ckpt_row_bytes = 0
+        self._ckpt_dev_inserted = 0
+
+    def _ckpt_take_shadow(self) -> dict:
+        """Copies of the small O(issuers) structures at a durable tick.
+        Caller holds the fold lock (or is otherwise quiesced)."""
+        return {
+            "registry_len": len(self.registry),
+            "issuer_totals": self.issuer_totals.copy(),
+            "verify_verified": self.verify_verified.copy(),
+            "verify_failed": self.verify_failed.copy(),
+            "crl": {i: set(v) for i, v in sorted(self.crl_sets.items())},
+            "dn": {i: set(v) for i, v in sorted(self.dn_sets.items())},
+        }
+
+    def _ckpt_arm(self, path: str, base_sha: str, tip_token: str,
+                  chain_len: int) -> None:
+        """Arm dirty tracking against a durable tick at ``path``."""
+        self._ckpt_path = path
+        self._ckpt_base_sha = base_sha
+        self._ckpt_tip_token = tip_token
+        self._ckpt_chain_len = chain_len
+        self._ckpt_track = True
+        self._ckpt_dirty_lost = False
+        self._ckpt_clear_log()
+        self._ckpt_shadow = self._ckpt_take_shadow()
+        set_gauge("ckpt", "chain_length", value=float(chain_len))
+
     # -- ingest ----------------------------------------------------------
     def complete_outstanding(self) -> None:
         """Fold every un-completed submit into host state (FIFO). Any
-        reader of aggregate state calls this first."""
-        while self._outstanding:
-            self._outstanding[0].complete()
+        reader of aggregate state calls this first. Whoever loses a race
+        for a pending with another completer no-ops."""
+        while True:
+            try:
+                pending = self._outstanding[0]
+            except IndexError:
+                return
+            pending.complete()
 
     def ingest(self, entries: list[tuple[bytes, bytes]]) -> IngestResult:
         """Process (leaf_der, issuer_der) pairs through the walker lane;
@@ -470,14 +736,18 @@ class TorchAggregator:
                     host_pos.append(start + j)
             if device_entries:
                 self.maybe_grow(incoming=len(device_entries))
-                batch = packing.pack_entries(
-                    device_entries, batch_size=self.batch_size)
-                out = self._device_step_packed(batch)
-                host_pos += self._consume_out(
-                    batch, out, np.asarray(device_pos, np.int64), res,
-                    np.arange(len(device_pos), dtype=np.int64))
-            host_lane_total += self._host_lanes(
-                host_pos, lambda pos: entries[pos][0], res)
+            # The fold lock after maybe_grow: a grow completes the
+            # outstanding pendings, whose folds take the same lock.
+            with self._fold_lock:
+                if device_entries:
+                    batch = packing.pack_entries(
+                        device_entries, batch_size=self.batch_size)
+                    out = self._device_step_packed(batch)
+                    host_pos += self._consume_out(
+                        batch, out, np.asarray(device_pos, np.int64), res,
+                        np.arange(len(device_pos), dtype=np.int64))
+                host_lane_total += self._host_lanes(
+                    host_pos, lambda pos: entries[pos][0], res)
         self.metrics["host_lane"] += host_lane_total
         res.host_lane_count = host_lane_total
         incr_counter("aggregator", "batches")
@@ -492,13 +762,25 @@ class TorchAggregator:
         return self.ingest_packed_submit(data, length, issuer_idx,
                                          valid).complete()
 
-    def ingest_packed_submit(self, data: np.ndarray, length: np.ndarray,
-                             issuer_idx: np.ndarray,
-                             valid: np.ndarray) -> PendingIngest:
+    def ingest_packed_submit(self, data, length: np.ndarray,
+                             issuer_idx: np.ndarray, valid: np.ndarray,
+                             host_data: Optional[np.ndarray] = None
+                             ) -> PendingIngest:
         """Queue the walker steps for a packed batch without reading
-        anything back: each chunk of ``batch_size`` rows is copied to
-        the device and stepped; ``complete()`` reads the results."""
+        anything back: each chunk of ``batch_size`` rows is stepped;
+        ``complete()`` reads the results.
+
+        ``data`` is ``uint8[n, L]`` NumPy rows, or a tensor whose copy to
+        the device the caller has already queued (the sink ships it from
+        pinned memory). Pass the NumPy rows as ``host_data`` then: the
+        host lane and the metadata windows slice them, so no rows are
+        read back from the device."""
         n = int(data.shape[0])
+        if host_data is None:
+            if not isinstance(data, np.ndarray):
+                raise ValueError(
+                    "host_data is required when data is a tensor")
+            host_data = data
         length = np.asarray(length, np.int32)
         valid = np.asarray(valid, bool)
         self.maybe_grow(incoming=n)
@@ -516,38 +798,108 @@ class TorchAggregator:
             end = min(start + b, n)
             m = end - start
             if m == b:
-                batch = packing.PackedBatch(
-                    data[start:end], length[start:end],
-                    res.issuer_idx[start:end], valid[start:end])
-            else:  # pad the tail chunk to the batch width
-                def pad(a, dtype):
-                    out = np.zeros((b,) + a.shape[1:], dtype)
-                    out[:m] = a[start:end]
-                    return out
-                batch = packing.PackedBatch(
-                    pad(data, np.uint8), pad(length, np.int32),
-                    pad(res.issuer_idx, np.int32), pad(valid, bool))
+                rows = data[start:end]
+            elif isinstance(data, np.ndarray):  # pad the tail chunk
+                rows = np.zeros((b, data.shape[1]), np.uint8)
+                rows[:m] = data[start:end]
+            else:  # pad the tail chunk where the rows already are
+                rows = data.new_zeros((b, data.shape[1]))
+                rows[:m] = data[start:end]
+
+            def pad(a, dtype):
+                out = np.zeros((b,), dtype)
+                out[:m] = a[start:end]
+                return out
+
+            batch = packing.PackedBatch(
+                rows, pad(length, np.int32), pad(res.issuer_idx, np.int32),
+                pad(valid, bool))
             lanes = np.nonzero(valid[start:end])[0].astype(np.int64)
             out = self._device_step_packed(batch)
             chunks.append((batch, lanes + start, lanes, out))
-        pending = PendingIngest(self, chunks, res, data, length)
+        pending = PendingIngest(self, chunks, res, host_data, length)
         self._outstanding.append(pending)
         return pending
+
+    def _to_device(self, a, dtype=None) -> torch.Tensor:
+        """A NumPy array or a tensor on this aggregator's device (a
+        tensor already there is returned as it is)."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, non_blocking=True)
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
+            self.device)
 
     def _device_step_packed(self, batch: packing.PackedBatch):
         """Queue one walker step on the table's device."""
         self._device_written = True
+        with trace.span("device.step", cat="device"), self._table_lock:
+            self.table, out = pipeline.ingest_core(
+                self.table, self._to_device(batch.data, np.uint8),
+                self._to_device(batch.length, np.int32),
+                self._to_device(batch.issuer_idx, np.int32),
+                self._to_device(batch.valid, bool), self._now_hour(),
+                self.base_hour, self._prefix_dev, self._prefix_lens_dev,
+                max_probes=self.max_probes)
+        return out
 
-        def dev(a, dtype) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
-                self.device)
+    # -- staged device queue (K-chunk walker envelope) -------------------
+    def ingest_staged_submit(
+        self,
+        data,  # uint8[K, B, L]: a tensor (its copy queued) or NumPy
+        length: np.ndarray,  # int32[K, B]
+        issuer_idx: np.ndarray,  # int32[K, B]
+        valid: np.ndarray,  # bool[K, B]
+        host_chunks: list[np.ndarray],  # per REAL chunk: uint8[n_k, L]
+    ) -> PendingStaged:
+        """Queue ONE K-chunk walker envelope
+        (:func:`~ct_mapreduce_tpu_torch.ops.pipeline.staged_core`)
+        without reading anything back. Chunk ``k``'s lanes land at
+        result positions ``k * B + lane``; chunks past
+        ``len(host_chunks)`` are all-invalid padding (the staging ring
+        flushed early). ``host_chunks`` are the caller's own host rows,
+        kept for host-lane slices and metadata windows: the staging
+        buffer ``data`` came from is recycled, so it is not read after
+        this call."""
+        k_chunks, b = length.shape
+        n = k_chunks * b
+        valid = np.asarray(valid, bool)
+        length = np.asarray(length, np.int32)
+        issuer_idx = np.asarray(issuer_idx, np.int32)
+        # The growth estimate counts the REAL chunks' lanes, not the
+        # all-invalid padding of a partial ring (counting K x B lanes
+        # grew tables 4x early in the JAX package).
+        self.maybe_grow(incoming=sum(int(c.shape[0]) for c in host_chunks))
+        self._inflight_lanes += n
+        res = IngestResult(
+            was_unknown=np.zeros((n,), bool),
+            filtered=np.zeros((n,), bool),
+            exp_hours=np.zeros((n,), np.int32),
+            serials=[None] * n,
+            issuer_idx=issuer_idx.reshape(n).copy(),
+        )
+        chunks = []
+        for k, rows in enumerate(host_chunks):
+            n_k = int(rows.shape[0])
+            batch = packing.PackedBatch(
+                rows, length[k, :n_k], issuer_idx[k, :n_k], valid[k, :n_k])
+            lanes = np.nonzero(valid[k])[0].astype(np.int64)
+            chunks.append((batch, lanes + k * b, lanes))
+        out = self._device_step_staged(data, length, issuer_idx, valid)
+        pending = PendingStaged(self, out, chunks, res, chunk_width=b)
+        self._outstanding.append(pending)
+        return pending
 
-        self.table, out = pipeline.ingest_core(
-            self.table, dev(batch.data, np.uint8),
-            dev(batch.length, np.int32), dev(batch.issuer_idx, np.int32),
-            dev(batch.valid, bool), self._now_hour(), self.base_hour,
-            self._prefix_dev, self._prefix_lens_dev,
-            max_probes=self.max_probes)
+    def _device_step_staged(self, data, length, issuer_idx, valid):
+        self._device_written = True
+        with trace.span("device.step_staged", cat="device",
+                        chunks=int(length.shape[0])), self._table_lock:
+            self.table, out = pipeline.staged_core(
+                self.table, self._to_device(data, np.uint8),
+                self._to_device(length, np.int32),
+                self._to_device(issuer_idx, np.int32),
+                self._to_device(valid, bool), self._now_hour(),
+                self.base_hour, self._prefix_dev, self._prefix_lens_dev,
+                max_probes=self.max_probes)
         return out
 
     def _consume_out(self, batch: packing.PackedBatch, out, device_pos,
@@ -557,9 +909,20 @@ class TorchAggregator:
         window) and fold them into ``res`` at the global positions
         ``device_pos`` (chunk lanes ``lanes``). ``host_rows`` is the
         host copy of the rows by global position, used for metadata
-        windows instead of the batch. Returns the positions that must
-        take the exact host lane."""
-        P = _pack_out(out).cpu().numpy()  # the one per-lane readback
+        windows instead of the batch. ``out`` is a walker step's
+        :class:`~ct_mapreduce_tpu_torch.ops.pipeline.StepOut` or a
+        staged chunk's host-side :class:`_NpStagedChunkOut`. Returns
+        the positions that must take the exact host lane. Caller holds
+        the fold lock."""
+        if isinstance(out, _NpStagedChunkOut):
+            P = out.packed
+            counts = np.asarray(out.issuer_unknown_counts, np.int64)
+            serials_of = lambda: out.serials  # noqa: E731
+        else:
+            # The one per-lane readback.
+            P = pipeline.pack_lane_words(out).cpu().numpy()
+            counts = out.issuer_unknown_counts.cpu().numpy().astype(np.int64)
+            serials_of = lambda: out.serials.cpu().numpy()  # noqa: E731
         flags = P[0]
         hl = (flags & 1) != 0
         wu = ((flags >> 1) & 1) != 0
@@ -574,7 +937,6 @@ class TorchAggregator:
         self.metrics["filtered_expired"] += int(f_exp.sum())
         self.metrics["filtered_cn"] += int(f_cn.sum())
         self.metrics["overflow"] += int(ovf.sum())
-        counts = out.issuer_unknown_counts.cpu().numpy().astype(np.int64)
         self.issuer_totals[: counts.shape[0]] += counts
 
         # True table-fill delta, taken before the cross-encoding guard
@@ -591,12 +953,16 @@ class TorchAggregator:
         kp, kl = pos_arr[keep], lanes[keep]
         res.exp_hours[kp] = nah[kl]
         if self.want_serials:
-            sarr = out.serials.cpu().numpy()
+            sarr = serials_of()
             for p_, l_ in zip(kp, kl):
                 sb = sarr[l_, : slen[l_]].tobytes()
                 res.serials[p_] = sb
                 if wu[l_]:
                     key = (int(batch.issuer_idx[l_]), int(nah[l_]))
+                    # Dirty-log the row before the guard: the device
+                    # inserted this key whether or not the guard flips
+                    # the report, and segments mirror table slots.
+                    self._ckpt_record_row(key[0], key[1], sb)
                     if sb in self.host_serials.get(key, ()):
                         # Cross-encoding guard (module docstring).
                         wu[l_] = False
@@ -605,6 +971,10 @@ class TorchAggregator:
                         res.was_unknown[p_] = True
         else:
             res.was_unknown[kp[wu[kl]]] = True
+            if dev_inserted:
+                # No serial bytes: these inserts cannot be dirty-logged,
+                # so the next checkpoint must anchor.
+                self._ckpt_mark_dirty_lost("serial-less fold")
         ksel = np.nonzero(res.was_unknown[pos_arr])[0]
         if ksel.size:
             if host_rows is not None:
@@ -622,6 +992,7 @@ class TorchAggregator:
         self.metrics["inserted"] += dev_unknown
         self.metrics["known"] += max(dev_known, 0)
         self._table_fill += dev_inserted
+        self._ckpt_note_inserted(dev_inserted)
         set_gauge("aggregator", "table_load",
                   value=self._table_fill / self.capacity)
         return host_pos
@@ -763,15 +1134,14 @@ class TorchAggregator:
     def _device_step_preparsed(self, serials, serial_len, nah, issuer_idx,
                                insertable, flag_cap: int):
         self._device_written = True
-
-        def dev(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        self.table, out = pipeline.preparsed_core(
-            self.table, dev(serials), dev(serial_len), dev(nah),
-            dev(issuer_idx), dev(insertable), self.base_hour,
-            max_probes=self.max_probes, flag_cap=flag_cap,
-        )
+        dev = self._to_device
+        with trace.span("device.step_preparsed", cat="device"), \
+                self._table_lock:
+            self.table, out = pipeline.preparsed_core(
+                self.table, dev(serials), dev(serial_len), dev(nah),
+                dev(issuer_idx), dev(insertable), self.base_hour,
+                max_probes=self.max_probes, flag_cap=flag_cap,
+            )
         return out
 
     def _fold_preparsed(self, out, plan: _PreparsedPlan,
@@ -842,6 +1212,8 @@ class TorchAggregator:
                 if wu[p_]:
                     key = (int(plan.issuer_idx[p_]),
                            int(sc.not_after_hour[p_]))
+                    # Dirty-log before the guard (see _consume_out).
+                    self._ckpt_record_row(key[0], key[1], sb)
                     if sb in self.host_serials.get(key, ()):
                         # Cross-encoding guard (module docstring).
                         wu[p_] = False
@@ -850,6 +1222,8 @@ class TorchAggregator:
                         res.was_unknown[p_] = True
         else:
             res.was_unknown[wu] = True
+            if dev_inserted:
+                self._ckpt_mark_dirty_lost("serial-less fold")
         ksel = np.nonzero(res.was_unknown[:n])[0]
         if ksel.size:
             self._accumulate_metadata_lanes(
@@ -863,6 +1237,7 @@ class TorchAggregator:
         self.metrics["inserted"] += dev_unknown
         self.metrics["known"] += max(dev_known, 0)
         self._table_fill += dev_inserted
+        self._ckpt_note_inserted(dev_inserted)
         set_gauge("aggregator", "table_load",
                   value=self._table_fill / self.capacity)
 
@@ -1026,6 +1401,7 @@ class TorchAggregator:
             self.metrics["known"] += 1
             return False, False, eh, fields.serial
         bucket.add(fields.serial)
+        self._ckpt_record_host(issuer_idx, eh, fields.serial)
         self.metrics["inserted"] += 1
         if issuer_idx >= self.issuer_totals.shape[0]:
             # Registry-overflow issuers (idx >= MAX_ISSUERS) only ever
@@ -1046,7 +1422,8 @@ class TorchAggregator:
         the data storage-statistics prints (reference
         cmd/storage-statistics/storage-statistics.go:28-99)."""
         self.complete_outstanding()
-        _, meta = self._drain_table()
+        with self._table_lock:
+            _, meta = self._drain_table()
         counts: dict[tuple[str, str], int] = {}
         if meta.size:
             uniq, cnt = np.unique(meta, return_counts=True)
@@ -1078,11 +1455,423 @@ class TorchAggregator:
         dns = {
             self.registry.issuer_at(i).id(): set(s) for i, s in self.dn_sets.items()
         }
+        vc = self.verify_counts()
         return AggregateSnapshot(
-            counts=counts, crls=crls, dns=dns, total=sum(counts.values()))
+            counts=counts, crls=crls, dns=dns, total=sum(counts.values()),
+            verified={k: v for k, (v, _) in vc.items() if v},
+            failed={k: f for k, (_, f) in vc.items() if f})
 
     def _count_key(self, issuer_idx: int, exp_hour: int) -> tuple[str, str]:
         return (
             self.registry.issuer_at(issuer_idx).id(),
             ExpDate.from_unix_hour(exp_hour).id(),
         )
+
+    # -- checkpoint ------------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """Durable aggregate state at ``path`` (the log cursor is
+        checkpointed separately, reference storage/types.go:25-42).
+
+        Two modes (the ``checkpointMode`` knob, agg/ckpt.py):
+
+        - ``ck01``: every save is the full ``.npz`` snapshot.
+        - ``ck02`` (default): the first save (and any save after the
+          dirty log was poisoned, or after ``ckptMaxChain`` segments)
+          writes a full base; every other save appends one O(churn)
+          CTMRCK02 delta segment and updates the chain manifest.
+
+        Every file lands via temp + fsync + ``os.replace``; segments
+        land before the manifest that names them."""
+        with self._save_lock:
+            self.complete_outstanding()
+            knobs = self._ckpt_resolved()
+            wrote_segment = False
+            compacting = False
+            if (knobs.mode == ckpt.MODE_INCREMENTAL and self._ckpt_track
+                    and not self._ckpt_dirty_lost
+                    and path == self._ckpt_path):
+                if self._ckpt_chain_len >= knobs.max_chain:
+                    compacting = True  # mandatory anchor
+                else:
+                    man = self._ckpt_manifest_for_extend(path, knobs)
+                    if man is not None:
+                        wrote_segment = self._save_segment(path, man)
+            if not wrote_segment:
+                self._save_full(path, knobs, compacting=compacting)
+
+    def _save_full(self, path: str, knobs, compacting: bool = False) -> None:
+        """One full ck01 base snapshot (+ a fresh manifest in ck02
+        mode). Caller holds the save lock."""
+        # Snapshot the host items AND cut the dirty generation under the
+        # fold lock: rows folded after this cut stay in the (new) log —
+        # they may also land in the .npz, which is safe because segment
+        # replay is insert-if-absent and set union.
+        with self._fold_lock:
+            host_items = sorted(
+                (idx, eh, b";".join(s.hex().encode() for s in sorted(serials)))
+                for (idx, eh), serials in self.host_serials.items())
+            self._ckpt_shadow = self._ckpt_take_shadow()
+            self._ckpt_clear_log()
+            self._ckpt_track = knobs.mode == ckpt.MODE_INCREMENTAL
+            self._ckpt_dirty_lost = False
+        directory = os.path.dirname(os.path.abspath(path))
+        fd, tmp_path = tempfile.mkstemp(
+            prefix=os.path.basename(path) + ".tmp.", dir=directory)
+        try:
+            with os.fdopen(fd, "wb") as fh:
+                self._write_npz(fh, host_items)
+                fh.flush()
+                os.fsync(fh.fileno())
+            os.replace(tmp_path, path)
+        except BaseException:
+            with contextlib.suppress(OSError):
+                os.unlink(tmp_path)
+            # Rows folded before the cut exist nowhere durable now.
+            self._ckpt_mark_dirty_lost("base save failed")
+            raise
+        incr_counter("ckpt", "full_saves")
+        if knobs.mode == ckpt.MODE_INCREMENTAL:
+            ckpt.kill_point("base-post-rename")
+            base_sha = ckpt.file_sha256(path)
+            ckpt.write_manifest(path, {
+                "format": ckpt.FORMAT, "baseSha256": base_sha,
+                "maxChain": knobs.max_chain, "chain": []})
+            ckpt.cleanup_segments(path)
+            self._ckpt_path = path
+            self._ckpt_base_sha = base_sha
+            self._ckpt_tip_token = base_sha
+            self._ckpt_chain_len = 0
+            set_gauge("ckpt", "chain_length", value=0.0)
+            if compacting:
+                incr_counter("ckpt", "compactions")
+        else:
+            # A stale manifest of an earlier ck02 run must never pair
+            # with this fresh base.
+            with contextlib.suppress(OSError):
+                os.unlink(ckpt.manifest_path(path))
+            self._ckpt_track = False
+
+    def _ckpt_manifest_for_extend(self, path: str, knobs):
+        """The on-disk manifest this save may append to, or None when
+        the durable tip is not the one in memory (the caller anchors)."""
+        try:
+            man = ckpt.read_manifest(path)
+        except ckpt.CkptError:
+            return None
+        if man is None:
+            # A plain ck01 base this aggregator loaded or wrote can grow
+            # a chain, provided the bytes on disk are that base.
+            if self._ckpt_chain_len:
+                return None
+            if (not os.path.exists(path)
+                    or ckpt.file_sha256(path) != self._ckpt_base_sha):
+                return None
+            return {"format": ckpt.FORMAT, "baseSha256": self._ckpt_base_sha,
+                    "maxChain": knobs.max_chain, "chain": []}
+        if man.get("baseSha256") != self._ckpt_base_sha:
+            return None
+        chain = man.get("chain", [])
+        try:
+            disk_tip = (chain[-1].get("targetSha256") if chain
+                        else man.get("baseSha256"))
+        except AttributeError:
+            return None
+        if (disk_tip != self._ckpt_tip_token
+                or len(chain) != self._ckpt_chain_len):
+            return None
+        return man
+
+    def _save_segment(self, path: str, man: dict) -> bool:
+        """Append one CTMRCK02 delta segment for this tick and update the
+        manifest. False when the dirty log fails its self-check (the
+        caller anchors instead). Caller holds the save lock."""
+        with self._fold_lock:
+            rows = self._ckpt_rows
+            host_adds = self._ckpt_host_adds
+            if len(rows) != self._ckpt_dev_inserted:
+                self._ckpt_mark_dirty_lost(
+                    f"recorded {len(rows)} rows, device inserted "
+                    f"{self._ckpt_dev_inserted}")
+                return False
+            blob = self._ckpt_segment_blob()
+            shadow = self._ckpt_take_shadow()
+            self._ckpt_clear_log()
+        if not rows and not host_adds and not self._ckpt_blob_nonempty(blob):
+            # Nothing churned since the last durable tick.
+            self._ckpt_shadow = shadow
+            return True
+        seq = self._ckpt_chain_len + 1
+        data, header = ckpt.encode_segment(
+            seq, self._ckpt_tip_token, rows, host_adds, blob)
+        try:
+            ckpt.write_segment(path, seq, data)
+            man = dict(man)
+            man["chain"] = list(man.get("chain", [])) + [{
+                "seq": seq,
+                "file": os.path.basename(ckpt.segment_path(path, seq)),
+                "targetSha256": header["targetSha256"],
+                "payloadSha256": header["payloadSha256"],
+                "bytes": len(data),
+                "rows": len(rows) + len(host_adds),
+            }]
+            ckpt.write_manifest(path, man)
+        except BaseException:
+            # The log was already cut; its rows exist nowhere durable.
+            self._ckpt_mark_dirty_lost("segment write failed")
+            raise
+        self._ckpt_tip_token = header["targetSha256"]
+        self._ckpt_chain_len = seq
+        self._ckpt_shadow = shadow
+        incr_counter("ckpt", "segments_written")
+        incr_counter("ckpt", "segment_bytes", value=float(len(data)))
+        incr_counter("ckpt", "dirty_rows",
+                     value=float(len(rows) + len(host_adds)))
+        set_gauge("ckpt", "chain_length", value=float(seq))
+        return True
+
+    def _ckpt_segment_blob(self) -> dict:
+        """The non-row diffs of this tick against the last durable
+        shadow. Caller holds the fold lock (countAfter is cut at the
+        same instant as the dirty log)."""
+        sh = self._ckpt_shadow or {
+            "registry_len": 0,
+            "issuer_totals": np.zeros((0,), np.int64),
+            "verify_verified": np.zeros((0,), np.int64),
+            "verify_failed": np.zeros((0,), np.int64),
+            "crl": {}, "dn": {},
+        }
+
+        def vec_diff(cur, old):
+            padded = np.zeros((cur.shape[0],), np.int64)
+            padded[: old.shape[0]] = old
+            nz = np.nonzero(cur != padded)[0]
+            return {"len": int(cur.shape[0]),
+                    "set": [[int(i), int(cur[i])] for i in nz]}
+
+        def set_adds(cur, old):
+            out = []
+            for i, v in sorted(cur.items()):
+                fresh = v - old.get(i, set())
+                if fresh:
+                    out.append([int(i), sorted(fresh)])
+            return out
+
+        return {
+            "baseHour": int(self.base_hour),
+            "countAfter": int(self._table_fill),
+            "registryAdds": self.registry.ids_from(sh["registry_len"]),
+            "issuerTotals": vec_diff(self.issuer_totals, sh["issuer_totals"]),
+            "verifyVerified": vec_diff(self.verify_verified,
+                                       sh["verify_verified"]),
+            "verifyFailed": vec_diff(self.verify_failed, sh["verify_failed"]),
+            "crlAdds": set_adds(self.crl_sets, sh["crl"]),
+            "dnAdds": set_adds(self.dn_sets, sh["dn"]),
+        }
+
+    @staticmethod
+    def _ckpt_blob_nonempty(blob: dict) -> bool:
+        return bool(blob["registryAdds"] or blob["issuerTotals"]["set"]
+                    or blob["verifyVerified"]["set"]
+                    or blob["verifyFailed"]["set"]
+                    or blob["crlAdds"] or blob["dnAdds"])
+
+    def _write_npz(self, fh, host_items) -> None:
+        """The ck01 ``.npz``: field for field, dtype for dtype, the JAX
+        package's, so its loader reads this file unchanged. The table
+        leaves the device in ONE copy under the table lock, as a
+        host-owned array (on the CPU ``.numpy()`` is a view of the live
+        rows, which the next step changes)."""
+        with self._table_lock:
+            rows = np.array(self.table.rows.cpu().numpy().view(np.uint32),
+                            copy=True)
+            count = np.asarray(np.int32(int(self.table.count)))
+        slots = rows[:, : buckettable.SLOTS * 5].reshape(-1, 5)
+        np.savez_compressed(
+            fh,
+            layout=np.array("bucket"),
+            n_shards=np.int64(1),
+            keys=slots[:, :4],
+            meta=slots[:, 4],
+            count=count,
+            registry=np.frombuffer(self.registry.to_json().encode(),
+                                   dtype=np.uint8),
+            base_hour=np.int64(self.base_hour),
+            issuer_totals=self.issuer_totals,
+            verify_verified=self.verify_verified,
+            verify_failed=self.verify_failed,
+            host_keys=np.array([(i, e) for i, e, _ in host_items],
+                               dtype=np.int64).reshape(-1, 2),
+            host_vals=np.array([v for _, _, v in host_items], dtype=object),
+            # Sorted keys: the bytes must not depend on fold order.
+            crl_sets=np.frombuffer(json.dumps(
+                {str(k): sorted(v) for k, v in sorted(self.crl_sets.items())}
+            ).encode(), dtype=np.uint8),
+            dn_sets=np.frombuffer(json.dumps(
+                {str(k): sorted(v) for k, v in sorted(self.dn_sets.items())}
+            ).encode(), dtype=np.uint8),
+            allow_pickle=True,
+        )
+
+    def _restore_table(self, keys: np.ndarray, meta: np.ndarray,
+                       count: np.ndarray, ckpt_shards: int) -> None:
+        """Rebuild the table on this aggregator's device from checkpoint
+        (keys, meta) slots. A snapshot of a sharded writer addresses its
+        slots by shard, so its rows re-hash through the reinsert path
+        instead of being copied by position."""
+        with self._table_lock:
+            if ckpt_shards != 1:
+                occ = keys.any(axis=-1)
+                self.table = self._make_table(max(int(keys.shape[0]), 1))
+                self.capacity = self.table.capacity
+                overflow = self._bulk_reinsert(keys[occ], meta[occ])
+                if overflow:
+                    raise RuntimeError(
+                        f"checkpoint restore overflowed {overflow} rows "
+                        f"re-hashing a {ckpt_shards}-shard snapshot; "
+                        f"increase tableBits (capacity {self.capacity})")
+                self._table_fill = int(occ.sum())
+                return
+            slots = buckettable.fuse_rows_np(keys, meta)
+            nb = slots.shape[0] // buckettable.SLOTS
+            rows = np.zeros((nb, buckettable.ROW_WORDS), np.uint32)
+            rows[:, : buckettable.SLOTS * 5] = slots.reshape(nb, -1)
+            # The insert trusts the cached fill word; positional
+            # snapshots need not carry it.
+            buckettable.fill_counts_np(rows)
+            self.table = buckettable.BucketTable(
+                rows=torch.from_numpy(rows.view(np.int32)).to(self.device),
+                count=torch.tensor(int(np.asarray(count).sum()),
+                                   dtype=torch.int64, device=self.device))
+            self.capacity = nb * buckettable.SLOTS
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore from ``path``: the base ``.npz`` plus whatever
+        CTMRCK02 chain its manifest names. ``resolve_chain`` validates
+        every link before anything is applied, so a torn tick loads as
+        the previous durable state, never a partial one."""
+        chain = ckpt.resolve_chain(path)
+        self._load_base(path)
+        for header, dev_rows, host_rows, blob in chain.segments:
+            self._ckpt_replay_segment(header, dev_rows, host_rows, blob)
+        if chain.segments:
+            incr_counter("ckpt", "restore_segments",
+                         value=float(len(chain.segments)))
+        self._ckpt_arm(path, chain.base_sha, chain.tip_token,
+                       len(chain.segments))
+
+    def _load_base(self, path: str) -> None:
+        with np.load(path, allow_pickle=True) as z:
+            # Checked before any state changes: formats this slice does
+            # not port are refused, never half-loaded.
+            layout = str(z["layout"]) if "layout" in z else "open"
+            if layout != "bucket":
+                raise ValueError(
+                    f"checkpoint {path} holds an {layout!r}-layout table; "
+                    "the open-addressing table is not ported yet "
+                    "(ROADMAP.md queue 1 item 8)")
+            if "filter_keys" in z:
+                raise ValueError(
+                    f"checkpoint {path} carries a filter capture; filter "
+                    "capture is not ported yet (ROADMAP.md queue 1 item 10)")
+            ckpt_shards = int(z["n_shards"]) if "n_shards" in z else 1
+            count = np.asarray(z["count"])
+            self._restore_table(np.asarray(z["keys"]), np.asarray(z["meta"]),
+                                count, ckpt_shards)
+            self._device_written = bool(count.sum() > 0)
+            self._table_fill = int(count.sum())
+            self._inflight_lanes = 0
+            self.base_hour = int(z["base_hour"])
+            self.registry = IssuerRegistry.from_json(
+                z["registry"].tobytes().decode())
+            self.issuer_totals = z["issuer_totals"].copy()
+            for name in ("verify_verified", "verify_failed"):
+                setattr(self, name,
+                        z[name].copy() if name in z
+                        else np.zeros((packing.MAX_ISSUERS,), np.int64))
+            self.host_serials = {}
+            for (idx, eh), vals in zip(z["host_keys"], z["host_vals"]):
+                self.host_serials[(int(idx), int(eh))] = {
+                    bytes.fromhex(h.decode()) for h in vals.split(b";") if h}
+            self.crl_sets = {
+                int(k): set(v) for k, v in
+                json.loads(z["crl_sets"].tobytes().decode()).items()}
+            self.dn_sets = {
+                int(k): set(v) for k, v in
+                json.loads(z["dn_sets"].tobytes().decode()).items()}
+
+    def _ckpt_replay_segment(self, header, dev_rows, host_rows,
+                             blob) -> None:
+        """Apply one decoded delta segment on top of the current state
+        (the base or earlier segments)."""
+        base_hour = int(blob.get("baseHour", self.base_hour))
+        if base_hour != self.base_hour:
+            raise ckpt.CkptError(
+                f"segment baseHour {base_hour} != base {self.base_hour}")
+        if "captureTokens" in blob:
+            raise ValueError(
+                "checkpoint segment carries filter-capture tokens; filter "
+                "capture is not ported yet (ROADMAP.md queue 1 item 10)")
+        # Registry first: replayed rows may name issuers the base
+        # predates.
+        for iid in blob.get("registryAdds", []):
+            self.registry.assign_issuer(Issuer.from_string(iid))
+        if dev_rows:
+            n = len(dev_rows)
+            idx = np.array([r[0] for r in dev_rows], np.int64)
+            eh = np.array([r[1] for r in dev_rows], np.int64)
+            slen = np.array([len(r[2]) for r in dev_rows], np.int32)
+            sarr = np.zeros((n, packing.MAX_SERIAL_BYTES), np.uint8)
+            for i, (_, _, sb) in enumerate(dev_rows):
+                sarr[i, : len(sb)] = np.frombuffer(sb, np.uint8)
+            keys = packing.fingerprints_np(idx, eh, sarr, slen)
+            off = eh - self.base_hour
+            if (off < 0).any() or (off >= packing.META_HOUR_SPAN).any():
+                raise ckpt.CkptError("segment exp hour outside meta span")
+            meta = ((idx << packing.META_HOUR_BITS) | off).astype(np.uint32)
+            overflow = self._chain_insert(keys, meta)
+            if overflow:
+                raise ckpt.CkptError(
+                    f"segment replay overflowed {overflow} rows "
+                    f"(base capacity {self.capacity})")
+            self._device_written = True
+        for i_, e_, sb in host_rows:
+            self.host_serials.setdefault((int(i_), int(e_)), set()).add(sb)
+        for name, attr in (("issuerTotals", "issuer_totals"),
+                           ("verifyVerified", "verify_verified"),
+                           ("verifyFailed", "verify_failed")):
+            self._ckpt_apply_vec(attr, blob.get(name))
+        for i, urls in blob.get("crlAdds", []):
+            self.crl_sets.setdefault(int(i), set()).update(urls)
+        for i, names in blob.get("dnAdds", []):
+            self.dn_sets.setdefault(int(i), set()).update(names)
+        # Self-check: the replayed table holds exactly the row count the
+        # writer saw at this tick.
+        self._table_fill = self._table_fill_exact()
+        want = blob.get("countAfter")
+        if want is not None and int(want) != self._table_fill:
+            raise ckpt.CkptError(
+                f"segment replay count {self._table_fill} != "
+                f"recorded {want}")
+
+    def _chain_insert(self, keys: np.ndarray, meta: np.ndarray) -> int:
+        """Insert chain-replayed rows into the CURRENT table. The insert
+        is insert-if-absent, so replay is idempotent against rows the
+        base already holds (a fold racing a base save may land in
+        both)."""
+        return self._bulk_reinsert(keys, meta)
+
+    def _ckpt_apply_vec(self, attr: str, spec) -> None:
+        """Apply one {len, set: [[idx, value], ...]} vector diff:
+        absolute values at changed indices, so replay in chain order
+        converges however many segments touch an index."""
+        if not spec:
+            return
+        vec = getattr(self, attr)
+        m = int(spec.get("len", vec.shape[0]))
+        if m > vec.shape[0]:
+            grown = np.zeros((m,), np.int64)
+            grown[: vec.shape[0]] = vec
+            vec = grown
+        for i, v in spec.get("set", []):
+            vec[int(i)] = int(v)
+        setattr(self, attr, vec)

@@ -1,7 +1,7 @@
 """Layered configuration: defaults < ini file < env vars.
 
 A copy of the part of ``ct_mapreduce_tpu.config.config`` that the
-port's pre-parsed ingest path reads. Directive names, defaults and
+port's ingest lanes, its sink and its checkpoints read. Directive names, defaults and
 precedence are the JAX package's, which mirror the reference
 (reference config/config.go:149-214): the ini section is consulted
 first, an environment variable keyed by the directive name overrides
@@ -30,6 +30,20 @@ class CTConfig:
     table_grow_at: float = 0.7  # grow-and-rehash load factor; 0 disables
     table_max_bits: int = 28  # growth ceiling; past it, spill to host lane
     mesh_shape: str = ""  # more than one device is not ported yet
+    decode_workers: int = 0  # 0 = auto (cpu count); raw-batch decode pool
+    decode_threads: int = 0  # 0 = auto; intra-chunk native decode threads
+    device_queue_depth: int = 2  # sink steps in flight before a fold
+    chunks_per_dispatch: int = 0  # K walker chunks per staged envelope;
+    # 0 = CTMR_CHUNKS_PER_DISPATCH env, then 1 (per-chunk dispatch)
+    staging_depth: int = 0  # staged envelopes in flight; 0 =
+    # CTMR_STAGING_DEPTH env, then 2
+    agg_state_path: str = ""  # .npz checkpoint of the aggregates
+    checkpoint_mode: str = ""  # "ck01" full-only | "ck02" incremental
+    # ("" = CTMR_CHECKPOINT_MODE env, then ck02)
+    ckpt_max_chain: int = 0  # CTMRCK02 delta segments before a base
+    # anchor (0 = CTMR_CKPT_MAX_CHAIN env, then 8)
+    ckpt_segment_budget_mb: int = 0  # dirty-log cap per tick; beyond it
+    # the save anchors (0 = CTMR_CKPT_SEGMENT_BUDGET_MB env, then 256)
 
     _DIRECTIVES = {
         # directive name -> (field, type)
@@ -41,6 +55,15 @@ class CTConfig:
         "tableGrowAt": ("table_grow_at", float),
         "tableMaxBits": ("table_max_bits", int),
         "meshShape": ("mesh_shape", str),
+        "decodeWorkers": ("decode_workers", int),
+        "decodeThreads": ("decode_threads", int),
+        "deviceQueueDepth": ("device_queue_depth", int),
+        "chunksPerDispatch": ("chunks_per_dispatch", int),
+        "stagingDepth": ("staging_depth", int),
+        "aggStatePath": ("agg_state_path", str),
+        "checkpointMode": ("checkpoint_mode", str),
+        "ckptMaxChain": ("ckpt_max_chain", int),
+        "ckptSegmentBudgetMB": ("ckpt_segment_budget_mb", int),
     }
 
     @classmethod

@@ -1,4 +1,4 @@
-"""The port's entry point: config → aggregator → ingest → drain.
+"""The port's entry point: config → aggregator → ingest → drain → save.
 
 The counterpart of ``ct_mapreduce_tpu.models.ingest_model`` on one
 device. Packed leaf rows take one of two lanes:
@@ -11,11 +11,15 @@ device. Packed leaf rows take one of two lanes:
   extracts the fields on the host and the device step is fingerprint +
   insert + counts only.
 
-Both give the same ``drain()``: what storage-statistics prints.
+Both give the same ``drain()``: what storage-statistics prints. With
+``aggStatePath`` set, ``from_config`` restores the checkpoint there
+when it exists and ``save()`` writes one (ck01 or a ck02 chain, per
+``checkpointMode``); the files are the JAX package's format.
 """
 
 from __future__ import annotations
 
+import os
 from datetime import datetime, timezone
 
 import numpy as np
@@ -29,7 +33,8 @@ from ct_mapreduce_tpu_torch.native import leafpack
 def build_aggregator(config: CTConfig, mesh=None,
                      device=None) -> TorchAggregator:
     """Single-device aggregator from config, on CUDA unless ``device``
-    names another."""
+    names another. The checkpoint knobs are pinned from the config's
+    directives (unset ones resolve through env and defaults)."""
     if mesh is not None or config.mesh_shape:
         raise NotImplementedError(
             "more than one device is not ported yet (ROADMAP.md, queue 1, "
@@ -39,7 +44,7 @@ def build_aggregator(config: CTConfig, mesh=None,
         if config.log_expired_entries
         else None
     )
-    return TorchAggregator(
+    agg = TorchAggregator(
         capacity=1 << config.table_bits,
         batch_size=config.batch_size,
         cn_prefixes=tuple(config.issuer_cn_filters()),
@@ -48,20 +53,30 @@ def build_aggregator(config: CTConfig, mesh=None,
         max_capacity=1 << config.table_max_bits,
         device=device,
     )
+    agg.configure_checkpointing(
+        mode=config.checkpoint_mode, max_chain=config.ckpt_max_chain,
+        segment_budget_mb=config.ckpt_segment_budget_mb)
+    return agg
 
 
 class IngestModel:
-    """Aggregator lifecycle, as one object."""
+    """Aggregator + checkpoint lifecycle, as one object."""
 
-    def __init__(self, aggregator: TorchAggregator, preparsed: bool = False):
+    def __init__(self, aggregator: TorchAggregator, preparsed: bool = False,
+                 state_path: str = ""):
         self.aggregator = aggregator
         self.preparsed = preparsed
+        self.state_path = state_path
 
     @classmethod
     def from_config(cls, config: CTConfig, mesh=None,
                     device=None) -> "IngestModel":
-        return cls(build_aggregator(config, mesh=mesh, device=device),
-                   preparsed=config.preparsed_ingest)
+        agg = build_aggregator(config, mesh=mesh, device=device)
+        model = cls(agg, preparsed=config.preparsed_ingest,
+                    state_path=config.agg_state_path)
+        if model.state_path and os.path.exists(model.state_path):
+            agg.load_checkpoint(model.state_path)
+        return model
 
     def ingest(self, entries: list[tuple[bytes, bytes]]) -> IngestResult:
         """(leaf_der, issuer_der) pairs through the walker lane."""
@@ -86,3 +101,7 @@ class IngestModel:
 
     def drain(self) -> AggregateSnapshot:
         return self.aggregator.drain()
+
+    def save(self) -> None:
+        if self.state_path:
+            self.aggregator.save_checkpoint(self.state_path)

@@ -3,8 +3,9 @@
 
 Builds :file:`ctmr_native.cpp` on first use into the checkout's
 git-ignored ``build/native`` directory (never beside the source) and
-loads it. Only the sidecar extraction the pre-parsed lane needs is
-bound here.
+loads it. Bound here: the batch leaf decoder and DER packer the ingest
+sink calls, and the sidecar extraction of the pre-parsed lane, each
+with its multi-threaded entry point.
 """
 
 from __future__ import annotations
@@ -74,8 +75,36 @@ def load() -> Optional[ctypes.CDLL]:
         except OSError:
             _LOAD_FAILED = True
             return None
+        i64p = ctypes.POINTER(ctypes.c_int64)
         i32p = ctypes.POINTER(ctypes.c_int32)
         u8p = ctypes.POINTER(ctypes.c_uint8)
+        decode_args = [
+            ctypes.c_int64,
+            ctypes.c_char_p, i64p,
+            ctypes.c_char_p, i64p,
+            ctypes.c_int64,
+            u8p, i32p,
+            i64p, i32p,
+            u8p, ctypes.c_int64,
+            i64p, i32p,
+            i32p,
+            u8p, ctypes.c_int64,
+        ]
+        lib.ctmr_decode_entries.restype = ctypes.c_int64
+        lib.ctmr_decode_entries.argtypes = decode_args
+        lib.ctmr_decode_entries_mt.restype = ctypes.c_int64
+        lib.ctmr_decode_entries_mt.argtypes = decode_args + [
+            ctypes.c_int64, i64p]
+        pack_args = [
+            ctypes.c_int64,
+            u8p, i64p,
+            ctypes.c_int64,
+            u8p, i32p, u8p,
+        ]
+        lib.ctmr_pack_ders.restype = ctypes.c_int64
+        lib.ctmr_pack_ders.argtypes = pack_args
+        lib.ctmr_pack_ders_mt.restype = ctypes.c_int64
+        lib.ctmr_pack_ders_mt.argtypes = pack_args + [ctypes.c_int64]
         sidecar_args = [
             ctypes.c_int64,
             u8p, ctypes.c_int64, i32p,

@@ -1,12 +1,15 @@
-// Native host-side sidecar extraction for the pre-parsed ingest lane.
+// Native host-side ingest decoder for the port.
 //
-// A copy of the sidecar half of ct_mapreduce_tpu/native/ctmr_native.cpp
-// (the worker pool, the scalar DER walker and its two entry points);
-// the base64/leaf decoding, DER packing and SCT extraction of that file
-// are not needed by the ported path yet.
+// A copy of ct_mapreduce_tpu/native/ctmr_native.cpp without its SCT
+// extraction (the verify lane is not ported yet): batched base64 and
+// RFC 6962 MerkleTreeLeaf/extra_data decoding, packing certificate
+// bytes into the fixed-width [n, pad_len] row layout, and the
+// pre-parsed lane's sidecar extraction (a scalar port of the DER
+// walker). One call handles a whole get-entries batch; the *_mt entry
+// points split it over a persistent worker pool.
 //
 // ABI: plain C, consumed via ctypes. All buffers are caller-allocated
-// numpy arrays.
+// (NumPy arrays, or the pinned host buffers of the ingest sink).
 
 #include <atomic>
 #include <condition_variable>
@@ -113,6 +116,311 @@ class WorkerPool {
 };
 
 }  // namespace pool
+
+namespace {
+
+// RFC 4648 base64 (standard alphabet, '=' padding). Returns decoded
+// length, or -1 on bad input. Whitespace is not tolerated — CT JSON
+// carries clean base64.
+struct B64Table {
+  int8_t t[256];
+  B64Table() {
+    for (int i = 0; i < 256; ++i) t[i] = -1;
+    const char* alpha =
+        "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789+/";
+    for (int i = 0; i < 64; ++i) t[(uint8_t)alpha[i]] = (int8_t)i;
+  }
+};
+
+int64_t b64_decode(const char* in, int64_t in_len, uint8_t* out) {
+  // C++ magic static: thread-safe one-time init (multiple store
+  // workers decode concurrently).
+  static const B64Table table;
+  // Match Python's b64decode(validate=True): total length must be a
+  // multiple of 4 (padding included), at most 2 trailing '=' pads, and
+  // any non-alphabet byte is fatal.
+  if (in_len % 4 != 0) return -1;
+  int pads = 0;
+  while (in_len > 0 && in[in_len - 1] == '=') { --in_len; ++pads; }
+  if (pads > 2) return -1;
+  int64_t out_len = 0;
+  uint32_t acc = 0;
+  int bits = 0;
+  for (int64_t i = 0; i < in_len; ++i) {
+    int8_t v = table.t[(uint8_t)in[i]];
+    if (v < 0) return -1;
+    acc = (acc << 6) | (uint32_t)v;
+    bits += 6;
+    if (bits >= 8) {
+      bits -= 8;
+      out[out_len++] = (uint8_t)((acc >> bits) & 0xFF);
+    }
+  }
+  return out_len;
+}
+
+struct Reader {
+  const uint8_t* p;
+  int64_t len;
+  int64_t pos = 0;
+  bool ok = true;
+
+  uint64_t uint(int width) {
+    if (pos + width > len) { ok = false; return 0; }
+    uint64_t v = 0;
+    for (int i = 0; i < width; ++i) v = (v << 8) | p[pos + i];
+    pos += width;
+    return v;
+  }
+  // TLS opaque<len_width>: returns (offset, length) into p.
+  bool opaque(int len_width, int64_t* off, int64_t* olen) {
+    uint64_t n = uint(len_width);
+    if (!ok || pos + (int64_t)n > len) { ok = false; return false; }
+    *off = pos;
+    *olen = (int64_t)n;
+    pos += (int64_t)n;
+    return true;
+  }
+};
+
+// FNV-1a 64-bit over a byte span (issuer-dedup hash).
+uint64_t fnv1a(const uint8_t* p, int64_t n) {
+  uint64_t h = 1469598103934665603ull;
+  for (int64_t i = 0; i < n; ++i) {
+    h ^= p[i];
+    h *= 1099511628211ull;
+  }
+  return h;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Status codes per entry (mirrors ingest/leaf.py error taxonomy).
+enum {
+  CTMR_OK = 0,
+  CTMR_BAD_B64 = 1,
+  CTMR_BAD_LEAF = 2,
+  CTMR_UNSUPPORTED = 3,   // version/leaf_type/entry_type unknown
+  CTMR_NO_CHAIN = 4,      // no issuer certificate in extra_data
+  CTMR_TOO_LONG = 5,      // cert exceeds pad_len (a wider redecode
+                          // can clear it; exact host lane otherwise)
+  CTMR_ISSUER_TOO_LONG = 6,  // issuer DER >= 2 MiB: the cert itself
+                          // packed fine, so a wider redecode is futile
+                          // — straight to the exact host lane
+};
+
+// Decode one get-entries batch and pack leaf certificates.
+//
+// Inputs: n entries; leaf_input/extra_data base64 blobs concatenated in
+// `li_buf`/`ed_buf` with offsets (n+1 entries, prefix-sum style).
+// Outputs:
+//   data      [n, pad_len] uint8  — packed certificate DER (zero-padded)
+//   length    [n] int32           — true DER length (0 on error lanes)
+//   ts_ms     [n] int64           — leaf timestamps
+//   entry_ty  [n] int32           — 0 x509 / 1 precert
+//   issuer_off/issuer_len [n] int64/int32 — issuer (chain[0]) DER span
+//       inside scratch; issuer bytes are written to `issuer_buf`
+//       sequentially; issuer_cap is its capacity.
+//   status    [n] int32
+// Returns bytes used in issuer_buf, or -1 if issuer_buf overflowed.
+int64_t ctmr_decode_entries(
+    int64_t n,
+    const char* li_buf, const int64_t* li_off,
+    const char* ed_buf, const int64_t* ed_off,
+    int64_t pad_len,
+    uint8_t* data, int32_t* length,
+    int64_t* ts_ms, int32_t* entry_ty,
+    uint8_t* issuer_buf, int64_t issuer_cap,
+    int64_t* issuer_off, int32_t* issuer_len,
+    int32_t* status,
+    uint8_t* scratch, int64_t scratch_cap) {
+  int64_t issuer_used = 0;
+  // Issuer dedup: CT batches carry a handful of distinct issuers, so
+  // identical chain[0] DERs share one span of issuer_buf (callers
+  // group entries by (off, len) without re-hashing bytes in Python).
+  // Fixed-size open-addressed table; on overflow we just append —
+  // correctness never depends on a dedup hit.
+  constexpr int kIssSlots = 512;  // power of two
+  struct IssSlot { uint64_t h; int64_t off; int32_t len; };
+  IssSlot iss_tab[kIssSlots];
+  std::memset(iss_tab, 0, sizeof(iss_tab));
+  for (int64_t i = 0; i < n; ++i) {
+    status[i] = CTMR_OK;
+    length[i] = 0;
+    ts_ms[i] = 0;
+    entry_ty[i] = 0;
+    issuer_off[i] = 0;
+    issuer_len[i] = 0;
+    uint8_t* row = data + i * pad_len;
+    std::memset(row, 0, (size_t)pad_len);
+
+    // -- leaf_input ---------------------------------------------------
+    const char* li = li_buf + li_off[i];
+    int64_t li_n = li_off[i + 1] - li_off[i];
+    if ((li_n * 3) / 4 + 4 > scratch_cap) { status[i] = CTMR_BAD_B64; continue; }
+    int64_t li_dec = b64_decode(li, li_n, scratch);
+    if (li_dec < 0) { status[i] = CTMR_BAD_B64; continue; }
+
+    Reader r{scratch, li_dec};
+    uint64_t version = r.uint(1);
+    uint64_t leaf_type = r.uint(1);
+    if (!r.ok || version != 0 || leaf_type != 0) {
+      status[i] = r.ok ? CTMR_UNSUPPORTED : CTMR_BAD_LEAF;
+      continue;
+    }
+    uint64_t ts = r.uint(8);
+    uint64_t ety = r.uint(2);
+    if (!r.ok) { status[i] = CTMR_BAD_LEAF; continue; }
+    // ts_ms/entry_ty are stored only once every BAD_* path is behind
+    // us (below, before the TOO_LONG check): the Python codec yields
+    // them only when the whole decode succeeds, and the conformance
+    // fuzz pins byte equality of every output array.
+
+    int64_t cert_off = 0, cert_len = 0;
+    if (ety == 0) {  // x509_entry: leaf cert in leaf_input
+      if (!r.opaque(3, &cert_off, &cert_len)) { status[i] = CTMR_BAD_LEAF; continue; }
+    } else if (ety == 1) {  // precert: issuer_key_hash + TBS (unused)
+      r.pos += 32;
+      int64_t toff, tlen;
+      if (r.pos > r.len || !r.opaque(3, &toff, &tlen)) {
+        status[i] = CTMR_BAD_LEAF; continue;
+      }
+    } else {
+      status[i] = CTMR_UNSUPPORTED;
+      continue;
+    }
+    // CtExtensions<2>: content ignored, but the frame must be intact —
+    // leaf.py's r.opaque(2) raises on truncation, so parity demands the
+    // same validation here.
+    {
+      int64_t xoff, xlen;
+      if (!r.opaque(2, &xoff, &xlen)) { status[i] = CTMR_BAD_LEAF; continue; }
+    }
+
+    const uint8_t* cert_src = scratch + cert_off;
+
+    // -- extra_data ---------------------------------------------------
+    const char* ed = ed_buf + ed_off[i];
+    int64_t ed_n = ed_off[i + 1] - ed_off[i];
+    uint8_t* ed_scratch = scratch + (li_dec + 7) / 8 * 8;
+    int64_t ed_cap = scratch_cap - (li_dec + 7) / 8 * 8;
+    int64_t ed_dec = 0;
+    if (ed_n > 0) {
+      if ((ed_n * 3) / 4 + 4 > ed_cap) { status[i] = CTMR_BAD_B64; continue; }
+      ed_dec = b64_decode(ed, ed_n, ed_scratch);
+      if (ed_dec < 0) { status[i] = CTMR_BAD_B64; continue; }
+    }
+
+    Reader er{ed_scratch, ed_dec};
+    if (ety == 1) {
+      // PrecertChainEntry: pre_certificate<3> is what gets stored.
+      int64_t poff, plen;
+      if (!er.opaque(3, &poff, &plen)) { status[i] = CTMR_BAD_LEAF; continue; }
+      cert_src = ed_scratch + poff;
+      cert_len = plen;
+    }
+    // chain (both types): outer <3> frame of <3>-prefixed certs. The
+    // whole frame must parse — the Python codec's _read_chain raises on
+    // ANY truncated element (not just the first), so a malformed frame
+    // is BAD_LEAF, never a silent "no chain".
+    int64_t chain_issuer_off = -1, chain_issuer_len = 0;
+    if (er.pos < er.len) {
+      int64_t foff, flen;
+      if (!er.opaque(3, &foff, &flen)) { status[i] = CTMR_BAD_LEAF; continue; }
+      Reader cr{ed_scratch + foff, flen};
+      bool chain_ok = true;
+      bool first = true;
+      while (cr.pos < cr.len) {
+        int64_t coff, clen;
+        if (!cr.opaque(3, &coff, &clen)) { chain_ok = false; break; }
+        if (first) {
+          chain_issuer_off = foff + coff;
+          chain_issuer_len = clen;
+          first = false;
+        }
+      }
+      if (!chain_ok) { status[i] = CTMR_BAD_LEAF; continue; }
+    }
+
+    ts_ms[i] = (int64_t)ts;
+    entry_ty[i] = (int32_t)ety;
+    if (cert_len > pad_len) { status[i] = CTMR_TOO_LONG; continue; }
+    std::memcpy(row, cert_src, (size_t)cert_len);
+    length[i] = (int32_t)cert_len;
+
+    if (chain_issuer_off < 0 || chain_issuer_len == 0) {
+      status[i] = CTMR_NO_CHAIN;  // cert still packed; caller decides
+      continue;
+    }
+    if (chain_issuer_len >= (1 << 21)) {
+      // Pathological >=2 MiB issuer DER: the Python span packing
+      // (off*2^21 + len) requires len < 2^21, so route the entry down
+      // the exact per-entry host lane instead of risking aliasing.
+      // Distinct from CTMR_TOO_LONG: the cert row IS packed, so the
+      // caller must not trigger a full-width batch redecode for it.
+      status[i] = CTMR_ISSUER_TOO_LONG;
+      continue;
+    }
+    const uint8_t* iss_src = ed_scratch + chain_issuer_off;
+    uint64_t h = fnv1a(iss_src, chain_issuer_len);
+    if (h == 0) h = 1;  // 0 marks an empty slot
+    int64_t found_off = -1;
+    int probe = (int)(h & (kIssSlots - 1));
+    int tries = 0;
+    for (; tries < kIssSlots; ++tries) {
+      IssSlot& s = iss_tab[probe];
+      if (s.h == 0) break;  // miss — insert here after the append
+      if (s.h == h && s.len == (int32_t)chain_issuer_len &&
+          std::memcmp(issuer_buf + s.off, iss_src,
+                      (size_t)chain_issuer_len) == 0) {
+        found_off = s.off;
+        break;
+      }
+      probe = (probe + 1) & (kIssSlots - 1);
+    }
+    if (found_off >= 0) {
+      issuer_off[i] = found_off;
+      issuer_len[i] = (int32_t)chain_issuer_len;
+      continue;
+    }
+    if (issuer_used + chain_issuer_len > issuer_cap) return -1;
+    std::memcpy(issuer_buf + issuer_used, iss_src,
+                (size_t)chain_issuer_len);
+    issuer_off[i] = issuer_used;
+    issuer_len[i] = (int32_t)chain_issuer_len;
+    if (tries < kIssSlots && iss_tab[probe].h == 0) {
+      iss_tab[probe] = {h, issuer_used, (int32_t)chain_issuer_len};
+    }
+    issuer_used += chain_issuer_len;
+  }
+  return issuer_used;
+}
+
+// Pack pre-decoded DER blobs (concatenated in `blob` with prefix-sum
+// offsets) into the [n, pad_len] device layout. Returns count packed;
+// lanes whose cert exceeds pad_len get length 0 and ok[i] = 0.
+int64_t ctmr_pack_ders(
+    int64_t n,
+    const uint8_t* blob, const int64_t* off,
+    int64_t pad_len,
+    uint8_t* data, int32_t* length, uint8_t* okflags) {
+  int64_t packed = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    uint8_t* row = data + i * pad_len;
+    std::memset(row, 0, (size_t)pad_len);
+    int64_t len = off[i + 1] - off[i];
+    if (len > pad_len) { length[i] = 0; okflags[i] = 0; continue; }
+    std::memcpy(row, blob + off[i], (size_t)len);
+    length[i] = (int32_t)len;
+    okflags[i] = 1;
+    ++packed;
+  }
+  return packed;
+}
+
+}  // extern "C"
 
 // ---------------------------------------------------------------------
 // Pre-parsed ingest sidecars: a SCALAR PORT of the device DER walker
@@ -445,7 +753,7 @@ inline Sidecar extract_one(const uint8_t* row, int64_t pad_len,
 extern "C" {
 
 // Per-entry pre-parsed identity sidecars for a packed [n, pad_len]
-// batch (the rows the packers produce). Lanes
+// batch (the rows ctmr_decode_entries/ctmr_pack_ders produce). Lanes
 // with length[i] == 0 come back ok=0. All output arrays length n.
 void ctmr_extract_sidecars(
     int64_t n,
@@ -513,5 +821,74 @@ void ctmr_extract_sidecars_mt(
         crldp_off + lo, crldp_len + lo);
   });
 }
+
+
+int64_t ctmr_decode_entries_mt(
+    int64_t n,
+    const char* li_buf, const int64_t* li_off,
+    const char* ed_buf, const int64_t* ed_off,
+    int64_t pad_len,
+    uint8_t* data, int32_t* length,
+    int64_t* ts_ms, int32_t* entry_ty,
+    uint8_t* issuer_buf, int64_t issuer_cap,
+    int64_t* issuer_off, int32_t* issuer_len,
+    int32_t* status,
+    uint8_t* scratch, int64_t scratch_each,  // scratch holds T spans
+    int64_t threads, int64_t* chunk_used /* [threads] out */) {
+  if (n <= 0) return 0;
+  int T = (int)threads;
+  if (T < 1) T = 1;
+  if ((int64_t)T > n) T = (int)n;
+  int64_t iss_each = issuer_cap / T;
+  pool::WorkerPool::get().run(T, T, [&](int t) {
+    int64_t lo = n * t / T, hi = n * (t + 1) / T;
+    int64_t base = (int64_t)t * iss_each;
+    // li_off/ed_off entries are absolute offsets into the shared
+    // buffers, so passing the shifted pointer re-bases lane indexing
+    // while byte addressing stays global.
+    int64_t used = ctmr_decode_entries(
+        hi - lo, li_buf, li_off + lo, ed_buf, ed_off + lo, pad_len,
+        data + lo * pad_len, length + lo, ts_ms + lo, entry_ty + lo,
+        issuer_buf + base, iss_each, issuer_off + lo, issuer_len + lo,
+        status + lo, scratch + (int64_t)t * scratch_each, scratch_each);
+    if (used >= 0) {
+      // Chunk-local spans → global offsets into the shared buffer.
+      for (int64_t i = lo; i < hi; ++i) {
+        if (issuer_len[i] > 0) issuer_off[i] += base;
+      }
+    }
+    chunk_used[t] = used;
+  });
+  for (int t = T; t < (int)threads; ++t) chunk_used[t] = 0;
+  int64_t total = 0;
+  for (int t = 0; t < T; ++t) {
+    if (chunk_used[t] < 0) return -1;  // a chunk's issuer slice overflowed
+    total += chunk_used[t];
+  }
+  return total;
+}
+
+int64_t ctmr_pack_ders_mt(
+    int64_t n,
+    const uint8_t* blob, const int64_t* off,
+    int64_t pad_len,
+    uint8_t* data, int32_t* length, uint8_t* okflags,
+    int64_t threads) {
+  if (n <= 0) return 0;
+  int T = (int)threads;
+  if (T < 1) T = 1;
+  if ((int64_t)T > n) T = (int)n;
+  std::vector<int64_t> packed((size_t)T, 0);
+  pool::WorkerPool::get().run(T, T, [&](int t) {
+    int64_t lo = n * t / T, hi = n * (t + 1) / T;
+    packed[(size_t)t] = ctmr_pack_ders(
+        hi - lo, blob, off + lo, pad_len,
+        data + lo * pad_len, length + lo, okflags + lo);
+  });
+  int64_t total = 0;
+  for (int t = 0; t < T; ++t) total += packed[(size_t)t];
+  return total;
+}
+
 
 }  // extern "C"

@@ -342,6 +342,13 @@ def host_rows(state: BucketTable) -> np.ndarray:
     return state.rows.cpu().numpy().view(np.uint32)
 
 
+def fuse_rows_np(keys: np.ndarray, meta: np.ndarray) -> np.ndarray:
+    """uint32[N, 4] keys + uint32[N] meta → fused uint32[N, 5] slots
+    (the JAX package's ``hashtable.fuse_rows`` on NumPy arrays)."""
+    return np.concatenate(
+        [keys.astype(np.uint32), meta.astype(np.uint32)[:, None]], axis=1)
+
+
 def fill_counts_np(rows_np: np.ndarray) -> np.ndarray:
     """Recompute each bucket's occupied-slot count from key-word
     occupancy and write it into ``FILL_WORD`` in place. Call after any

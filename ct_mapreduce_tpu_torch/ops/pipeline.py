@@ -19,6 +19,12 @@ vectors, laid out exactly as the JAX package's ``PreparsedStepOut``.
 Every filter and routing predicate that does not depend on table state
 is evaluated by the HOST (``agg/aggregator.py``
 ``ingest_preparsed_submit``); only ``insertable`` reaches the device.
+
+The staged envelope, :func:`staged_core`: K walker chunks that the
+ingest sink shipped in one copy run as K calls of :func:`ingest_core`
+in order, their per-lane outputs packed on the device
+(:func:`pack_lane_words`) so the host reads one ``int32[K, 7, B]``
+array per envelope.
 """
 
 from __future__ import annotations
@@ -285,3 +291,60 @@ def preparsed_core(
         packed[k, 2 + nb + flag_cap:] = counts
         ovf_bits[k] = _pack_bits(ovf, nb)
     return table, PreparsedStepOut(packed=packed, overflow_bits=ovf_bits)
+
+
+# -- the staged walker envelope -----------------------------------------
+
+class StagedStepOut(NamedTuple):
+    """Device outputs of the K-chunk walker envelope."""
+
+    packed: torch.Tensor  # int32[K, 7, B] — per chunk the
+    # :func:`pack_lane_words` layout
+    issuer_unknown_counts: torch.Tensor  # int32[num_issuers], summed
+    # over the K chunks
+    serials: torch.Tensor  # uint8[K, B, MAX_SERIAL_BYTES]
+
+
+def pack_lane_words(out: StepOut) -> torch.Tensor:
+    """One walker step's per-lane outputs as ONE int32[7, B] tensor, so
+    the host pays one device-to-host copy for them: row 0 the flag word
+    (host_lane | was_unknown<<1 | filtered_ca<<2 | filtered_expired<<3 |
+    filtered_cn<<4 | probe_overflow<<5), rows 1-6 not_after_hour,
+    serial_len, crldp_off, crldp_len, issuer_name_off, issuer_name_len
+    (the JAX package's readback layout)."""
+    flags = torch.zeros_like(out.not_after_hour)
+    for bit, f in enumerate((out.host_lane, out.was_unknown,
+                             out.filtered_ca, out.filtered_expired,
+                             out.filtered_cn, out.probe_overflow)):
+        flags |= f.to(torch.int32) << bit
+    return torch.stack([flags, out.not_after_hour, out.serial_len,
+                        out.crldp_off, out.crldp_len, out.issuer_name_off,
+                        out.issuer_name_len], dim=0)
+
+
+def staged_core(table, data: torch.Tensor, length: torch.Tensor,
+                issuer_idx: torch.Tensor, valid: torch.Tensor,
+                now_hour: int, base_hour: int, cn_prefixes: torch.Tensor,
+                cn_prefix_lens: torch.Tensor,
+                num_issuers: int = packing.MAX_ISSUERS,
+                max_probes: int = 32):
+    """K walker chunks (``data`` uint8[K, B, L], the rest [K, B]) as K
+    calls of :func:`ingest_core` in submission order, the table carried
+    from one to the next, so an envelope equals K unstaged steps.
+    Returns ``(table, StagedStepOut)``."""
+    k_chunks, b = length.shape
+    dev = length.device
+    packed = torch.zeros((k_chunks, 7, b), dtype=torch.int32, device=dev)
+    serials = torch.zeros((k_chunks, b, packing.MAX_SERIAL_BYTES),
+                          dtype=torch.uint8, device=dev)
+    counts = torch.zeros((num_issuers,), dtype=torch.int32, device=dev)
+    for k in range(k_chunks):
+        table, out = ingest_core(
+            table, data[k], length[k], issuer_idx[k], valid[k], now_hour,
+            base_hour, cn_prefixes, cn_prefix_lens, num_issuers=num_issuers,
+            max_probes=max_probes)
+        packed[k] = pack_lane_words(out)
+        serials[k] = out.serials
+        counts += out.issuer_unknown_counts
+    return table, StagedStepOut(packed=packed, issuer_unknown_counts=counts,
+                                serials=serials)

@@ -471,7 +471,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for m in ('ops.der_kernel', 'ops.der_kernel_cuda', 'ops.cuda_build',"
-        " 'tools.mosaic_probe', 'utils.dercases'):\n"
+        " 'tools.mosaic_probe', 'utils.dercases', 'agg.ckpt', 'agg.merge',"
+        " 'config.profile', 'ingest.leaf', 'ingest.sync',"
+        " 'telemetry.trace'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and ("
         "m == 'ct_mapreduce_tpu' or m.startswith('ct_mapreduce_tpu.') "
@@ -483,4 +485,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 32

@@ -338,3 +338,141 @@ def test_walker_lane_on_card_matches_cpu(cuda):
     assert (gpu_m, gpu_cap, gpu_snap) == (cpu_m, cpu_cap, cpu_snap)
     assert cpu_cap > 24 * 8 and cpu_m["overflow"] > 0
     assert cpu_m["filtered_cn"] > 0 and cpu_m["host_lane"] > cpu_m["overflow"]
+
+
+def _sink_pages(n_pages: int, per_page: int):
+    """Raw get-entries pages of minicert leaves (two issuers, replays
+    across pages, one CA leaf a page) and their base64 wire form."""
+    import base64
+
+    from ct_mapreduce_tpu_torch.ingest import leaf as leaflib
+    from ct_mapreduce_tpu_torch.utils import minicert
+
+    issuers = [minicert.make_cert(serial=1, issuer_cn=f"Pin CA {k}",
+                                  is_ca=True) for k in range(2)]
+    eds = [base64.b64encode(leaflib.encode_extra_data([i])).decode()
+           for i in issuers]
+    pages, serial = [], 10
+    for p in range(n_pages):
+        lis, ed = [], []
+        for j in range(per_page):
+            k = j % 2
+            s = serial - per_page if (j % 9 == 8 and p) else serial
+            serial += 1
+            leaf = minicert.make_cert(
+                serial=s, issuer_cn=f"Pin CA {k}", subject_cn="pin.example",
+                is_ca=(j == 3), crl_dps=(f"http://crl{k}.example/c.crl",))
+            lis.append(base64.b64encode(
+                leaflib.encode_leaf_input(leaf, j)).decode())
+            ed.append(eds[k])
+        pages.append((lis, ed))
+    return pages
+
+
+def _sink_drain(device, pages, pad_len=2048, varied=False, **kw):
+    """The pages through a sink on ``device``. ``varied`` re-cuts them
+    into pages of 5 to 40 entries with a flush() every third page;
+    ``pad_len`` 1024 decodes the minicert leaves wide and narrows
+    them."""
+    import datetime
+
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+    from ct_mapreduce_tpu_torch.ingest import sync
+    from ct_mapreduce_tpu_torch.telemetry import metrics
+
+    if varied:
+        lis = [li for p in pages for li in p[0]]
+        eds = [ed for p in pages for ed in p[1]]
+        pages, at = [], 0
+        while at < len(lis):
+            n = (5, 40, 17, 29, 3)[len(pages) % 5]
+            pages.append((lis[at:at + n], eds[at:at + n]))
+            at += n
+    now = datetime.datetime(2025, 1, 1, tzinfo=datetime.timezone.utc)
+    agg = TorchAggregator(capacity=1 << 12, batch_size=64, now=now,
+                          device=device)
+    sink = sync.AggregatorSink(agg, flush_size=64, **kw)
+    sink.PAD_LEN = pad_len
+    metrics.get_sink().reset()
+    for n, (lis, eds) in enumerate(pages):
+        sink.store_raw_batch(sync.RawBatch(lis, eds, n * 64, "log"))
+        if varied and n % 3 == 2:
+            sink.flush()
+    sink.close()
+    counters = metrics.get_sink().snapshot()["counters"]
+    snap = agg.drain()
+    return ((snap.counts, snap.crls, snap.dns, snap.total,
+             agg.issuer_totals.tolist(), dict(agg.metrics)), counters, sink)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(device_queue_depth=0), dict(device_queue_depth=2),
+    dict(chunks_per_dispatch=2, staging_depth=1),
+    dict(chunks_per_dispatch=2, staging_depth=2),
+    dict(device_queue_depth=2, pad_len=1024),
+    dict(device_queue_depth=2, varied=True),
+    dict(chunks_per_dispatch=2, staging_depth=2, varied=True)],
+    ids=["unstaged-depth0", "unstaged-depth2", "staged-depth1",
+         "staged-depth2", "unstaged-narrowed", "unstaged-varied",
+         "staged-varied"])
+def test_sink_pinned_buffers_on_card_match_cpu(cuda, kw):
+    """The sink on the card, with every row copy from pinned memory and
+    its buffers reused (16 envelopes or 32 chunks through a pool of at
+    most depth + 1 buffers, also with pages of varying size, partial
+    chunks at flush() and chunks narrowed after a wide decode), drains
+    as the CPU path."""
+    pages = _sink_pages(32, 64)
+    want, _, _ = _sink_drain("cpu", pages, **kw)
+    got, counters, sink = _sink_drain(cuda, pages, **kw)
+    assert got == want and want[3] > 1500
+    assert counters["ingest.h2d_bytes"] > 0
+    assert counters["ingest.h2d_pinned_bytes"] == counters["ingest.h2d_bytes"]
+    pool = sink._row_bufs
+    keep = (sink.staging_depth if sink.chunks_per_dispatch > 1
+            else sink.device_queue_depth)
+    assert 1 <= pool.allocated == pool.live <= keep + 1
+    assert all(b.is_pinned() for b in pool._free)
+    if kw.get("pad_len") == 1024:  # every chunk shipped 512-byte rows
+        assert counters["ingest.h2d_bytes"] == 32 * 64 * 512
+
+
+def test_checkpoint_round_trip_card_and_cpu(cuda, tmp_path):
+    """A ck02 chain and a ck01 file written on the card load on the CPU
+    and on the card to the writer's digest and drain, and a chain the
+    CPU writes loads on the card."""
+    import datetime
+
+    from ct_mapreduce_tpu_torch.agg import ckpt
+    from ct_mapreduce_tpu_torch.agg.aggregator import (
+        TorchAggregator, ckpt_state_digest)
+    from ct_mapreduce_tpu_torch.utils import minicert
+
+    now = datetime.datetime(2025, 1, 1, tzinfo=datetime.timezone.utc)
+    issuers = [minicert.make_cert(serial=1, issuer_cn=f"Ck CA {k}",
+                                  is_ca=True) for k in range(2)]
+
+    def entries(start):
+        return [(minicert.make_cert(serial=start + j % 150,
+                                    issuer_cn=f"Ck CA {j % 2}",
+                                    crl_dps=("http://c.example/c.crl",)),
+                 issuers[j % 2]) for j in range(200)]
+
+    for writer_dev, reader_devs in ((cuda, ("cpu", cuda)), ("cpu", (cuda,))):
+        w = TorchAggregator(capacity=1 << 10, batch_size=128, now=now,
+                            device=writer_dev)
+        w.configure_checkpointing(mode="ck02")
+        chain = str(tmp_path / f"{writer_dev}-chain.npz")
+        for t in range(3):
+            w.ingest(entries(1000 * (t + 1)))
+            w.save_checkpoint(chain)
+        assert len(ckpt.resolve_chain(chain).segments) == 2
+        w.configure_checkpointing(mode="ck01")
+        full = str(tmp_path / f"{writer_dev}-full.npz")
+        w.save_checkpoint(full)
+        want = (ckpt_state_digest(w), w.drain())
+        for path in (chain, full):
+            for dev in reader_devs:
+                r = TorchAggregator(capacity=1 << 10, device=dev)
+                r.load_checkpoint(path)
+                assert r.table.rows.device.type == torch.device(dev).type
+                assert (ckpt_state_digest(r), r.drain()) == want

@@ -163,3 +163,62 @@ def test_ingest_core_matches_jax(steps):
         overflowed += int(np.asarray(want.probe_overflow).sum())
         assert np.asarray(want.was_unknown).any()
     assert overflowed > 0
+
+
+def test_pack_lane_words_matches_jax(steps):
+    import jax
+
+    arr, lens = _prefix_arrays()
+    jt = jbt.make_table(CAPACITY)
+    tt = tbt.make_table(CAPACITY, device="cpu")
+    seen_flags = 0
+    for data, length, issuer, valid in steps:
+        jt, want = jpipeline.ingest_step(
+            jt, data, length, issuer, valid, np.int32(NOW_HOUR),
+            np.int32(BASE_HOUR), arr, lens, num_issuers=N_ISSUERS,
+            max_probes=1)
+        tt, got = tpipeline.ingest_core(
+            tt, *(torch.from_numpy(a) for a in (data, length, issuer, valid)),
+            NOW_HOUR, BASE_HOUR, torch.from_numpy(arr),
+            torch.from_numpy(lens), num_issuers=N_ISSUERS, max_probes=1)
+        want_words = np.asarray(jax.jit(jpipeline.pack_lane_words)(want))
+        got_words = tpipeline.pack_lane_words(got)
+        assert got_words.dtype == torch.int32 and got_words.shape == (7, B)
+        np.testing.assert_array_equal(got_words.numpy(), want_words)
+        seen_flags |= int(np.bitwise_or.reduce(want_words[0]))
+    # Every flag bit the layout defines is set on some lane.
+    assert seen_flags == 0x3F
+
+
+def test_staged_core_matches_jax(steps):
+    """The three steps as one K=3 envelope: packed words, serials, the
+    summed counts and the table equal the JAX envelope's, and equal the
+    port's three unstaged steps."""
+    arr, lens = _prefix_arrays()
+    data, length, issuer, valid = (np.stack([s[i] for s in steps])
+                                   for i in range(4))
+    jt, want = jpipeline.ingest_step_staged(
+        jbt.make_table(CAPACITY), data, length, issuer, valid,
+        np.int32(NOW_HOUR), np.int32(BASE_HOUR), arr, lens,
+        num_issuers=N_ISSUERS, max_probes=1)
+    tt, got = tpipeline.staged_core(
+        tbt.make_table(CAPACITY, device="cpu"),
+        *(torch.from_numpy(a) for a in (data, length, issuer, valid)),
+        NOW_HOUR, BASE_HOUR, torch.from_numpy(arr), torch.from_numpy(lens),
+        num_issuers=N_ISSUERS, max_probes=1)
+    for f in jpipeline.StagedStepOut._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    np.testing.assert_array_equal(tbt.host_rows(tt), np.asarray(jt.rows))
+    assert int(tt.count) == int(np.asarray(jt.count))
+
+    ut = tbt.make_table(CAPACITY, device="cpu")
+    for k in range(3):
+        ut, out = tpipeline.ingest_core(
+            ut, *(torch.from_numpy(a[k]) for a in (data, length, issuer,
+                                                   valid)),
+            NOW_HOUR, BASE_HOUR, torch.from_numpy(arr),
+            torch.from_numpy(lens), num_issuers=N_ISSUERS, max_probes=1)
+        assert torch.equal(tpipeline.pack_lane_words(out), got.packed[k])
+    assert torch.equal(ut.rows, tt.rows)

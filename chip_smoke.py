@@ -31,7 +31,7 @@ Phases, none of them caught — any failure exits non-zero:
    parser, stage 9 timed at 2^20 lanes), then every stage at 2^20 lanes
    against its plain version, timed;
 5. the walker main path, the default lane: ``IngestModel`` at
-   ``batchSize`` 2^20 from the shipped ``tableBits`` 22, with an issuer
+   ``batchSize`` 2^20 from ``tableBits`` 21, with an issuer
    CN filter that keeps 12 of 16 issuers and a 64-byte prefix of a
    70-byte issuer CN (those lanes take the exact host lane): 16 issuers
    split by Zipf(1.1), EC and RSA-sized leaves with the rich extension
@@ -50,8 +50,8 @@ Phases, none of them caught — any failure exits non-zero:
    ``contains`` over every inserted key;
 8. the ingest sink as ct-fetch drives it: phase 5's stream (CN filter,
    replays, expired and CA leaves) as raw get-entries pages of 1,000
-   entries (base64 ``leaf_input``/``extra_data``), 92 chunks of
-   ``batchSize`` 65,536 (6,029,312 entries, enough for ``tableBits`` 22
+   entries (base64 ``leaf_input``/``extra_data``), 24 chunks of
+   ``batchSize`` 65,536 (1,572,864 entries, enough for ``tableBits`` 20
    to grow) through ``AggregatorSink.store_raw_batch`` in three
    configurations, each sink built by ``build_sink`` from its config
    directives: unstaged at ``deviceQueueDepth`` 2, staged
@@ -65,11 +65,29 @@ Phases, none of them caught — any failure exits non-zero:
    and as a ck02 base and loaded on the card and on the CPU to the
    sink's drain; an ``IngestModel`` with ``aggStatePath`` writing a
    ck02 base and two one-batch segments, restored on the card to the
-   writer's ``ckpt_state_digest``, then resumed to the oracle's drain.
+   writer's ``ckpt_state_digest``, then resumed to the oracle's drain;
+10. ct-fetch on the card, through ``cmd/ct_fetch.main`` and
+   ``cmd/storage_statistics.main`` with inis the phase writes: a log
+   server in a process of its own (``utils/fakelog.py`` over
+   ``http.server`` on 127.0.0.1, started first so it builds its log
+   while phases 1-9 run) serves phase 8's stream as 1,000-entry
+   get-entries pages, 2,097,152 entries; ct-fetch downloads it over the
+   client's urllib transport with ``backend = tpu``, ``batchSize``
+   65,536, ``tableBits`` 20 (it grows once), ``deviceQueueDepth`` 2 and
+   ``aggStatePath``: (a) unstaged, its ``storage-statistics -v 1`` and
+   ``-v 2`` reports held to the oracle; (b) ``overlapWorkers`` 2 and (c)
+   staged (``chunksPerDispatch`` 8, ``stagingDepth`` 2), each from an
+   empty state; every drain (on the card and from the checkpoint) held
+   to the oracle and to the others, every pool within its bound; (d)
+   with ``certPath``, 131,072 entries, then the log grows to 262,144
+   and ct-fetch resumes from the cursor in the PEM tree's state file
+   and from ``aggStatePath`` to the drain of one run over all 262,144
+   and the oracle's, with one PEM file per first-seen serial, each
+   decoding to its leaf.
 
 The kernels' launch counts are set to 0 just before each main path
-(walker, pre-parsed, probe ladder, each sink configuration) and read
-just after it. Prints the
+(walker, pre-parsed, probe ladder, each sink configuration, each
+ct-fetch run) and read just after it. Prints the
 card line, a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -99,8 +117,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 DISPATCH_OPS_PER_S = 132 * 128 * 1.98e9
 
 BATCH_LOG2 = 20  # batchSize 2^20, the JAX package's headline batch
-MAIN_BATCHES = 10  # enough for the shipped tableBits 22 to grow once
-TABLE_BITS = 22  # the shipped default
+MAIN_BATCHES = 6  # enough for tableBits 21 (3,145,728 slots) to grow once
+TABLE_BITS = 21  # one below the shipped 22, which needs 10 batches
 BIG_TABLE_BITS = 26  # 2^22 buckets: 2 GiB of rows
 TIMED_REPS = 25  # CUDA-event timings per turn (two turns each)
 PLAIN_REPS = 5  # timings per turn of a slow plain version
@@ -1027,11 +1045,11 @@ def deployment_state(device, stream: Stream, table_bits: int,
 # -- phase 8: the ingest sink on raw get-entries pages ------------------
 
 SINK_BATCH = 1 << 16  # batchSize 65,536, the config default
-SINK_TABLE_BITS = 22  # the config default
+SINK_TABLE_BITS = 20  # 1,572,864 slots (the default 22 needs 4x the entries)
 SINK_PAGE = 1000  # entries a get-entries page (the log client's batch)
-# Enough entries that the unique serials pass the default grow load
-# (0.7 of tableBits 22's 6,291,456 slots) at the replay share below.
-SINK_CHUNKS = 92
+# Enough entries that the unique serials (about 1,250,000) pass the grow
+# load (0.7 of tableBits 20's 1,572,864 slots) at the replay share below.
+SINK_CHUNKS = 24
 SINK_REPLAY = 0.1
 # The config directives each sink is built from (``build_sink``):
 # deviceQueueDepth, chunksPerDispatch, stagingDepth, preparsedIngest.
@@ -1051,7 +1069,7 @@ def sink_config(name: str, stream: "Stream"):
 
     return dataclasses.replace(
         _config(SINK_BATCH.bit_length() - 1, SINK_TABLE_BITS, False,
-                stream.cn_prefixes()), **SINK_CONFIGS[name])
+                stream.cn_prefixes()), backend="tpu", **SINK_CONFIGS[name])
 
 
 def wire_extra_data(stream: Stream) -> list[str]:
@@ -1346,6 +1364,399 @@ def checkpoints(device, staged_model, staged_drain, seed: int) -> dict:
     return out
 
 
+# -- phase 10: ct-fetch on the card -------------------------------------
+
+FETCH_CHUNK = SINK_BATCH  # entries the log server makes a stream call
+FETCH_ENTRIES = 1 << 21  # 2,097,152 entries in the served log
+FETCH_TABLE_BITS = 20  # 1,572,864 slots: each run over the log grows once
+RESUME_ENTRIES = (1 << 17, 1 << 18)  # (d): the log at the first run, grown
+# The directives of each run over the whole log, beside the common ones.
+FETCH_RUNS = {
+    "a": {},
+    "b": {"overlapWorkers": 2},
+    "c": {"chunksPerDispatch": 8, "stagingDepth": 2},
+}
+
+
+def serve_logs(seed: int, conn) -> None:
+    """The log server, in a process of its own (so its HTTP and JSON work
+    does not share ct-fetch's interpreter): phase 8's stream as two logs
+    on 127.0.0.1 — ``full``, FETCH_ENTRIES entries, and ``grow``, its
+    first RESUME_ENTRIES[0] entries — each entry made by ``sink_entries``
+    in calls of FETCH_CHUNK lanes, so ``fetch_oracle`` regenerates the
+    truth from the same seed. Sends the two URLs on ``conn``, then
+    answers "grow" (``grow`` takes RESUME_ENTRIES[1] entries), "starts"
+    (the ``start`` of each get-entries request ``grow`` has answered
+    since the last ask) and "stop"."""
+    sys.path.insert(0, HERE)
+    from ct_mapreduce_tpu_torch.utils.fakelog import FakeLog, LogServer
+
+    stream = Stream(seed, cn_filter=True)
+    extra = wire_extra_data(stream)
+    full = FakeLog(url="https://ct.smoke.example/full")
+    grow = FakeLog(url="https://ct.smoke.example/grow")
+    for _ in range(FETCH_ENTRIES // FETCH_CHUNK):
+        lis, eds, _, _ = sink_entries(stream, extra, FETCH_CHUNK, SINK_REPLAY)
+        for li, ed in zip(lis, eds):
+            full.add_raw(li, ed)
+    for e in full.entries[:RESUME_ENTRIES[0]]:
+        grow.add_raw(e["leaf_input"], e["extra_data"])
+    with LogServer(full) as s_full, LogServer(grow) as s_grow:
+        conn.send((s_full.url, s_grow.url))
+        while True:
+            msg = conn.recv()
+            if msg == "grow":
+                for e in full.entries[len(grow.entries):RESUME_ENTRIES[1]]:
+                    grow.add_raw(e["leaf_input"], e["extra_data"])
+                conn.send(len(grow.entries))
+            elif msg == "starts":
+                conn.send([int(r.split("start=")[1].split("&")[0])
+                           for r in grow.requests if "get-entries" in r])
+                grow.requests.clear()
+            else:
+                break
+
+
+class LogProcess:
+    """``serve_logs`` in a spawned process (started before the earlier
+    phases, so the log is made while they run); ``stop()`` ends it."""
+
+    def __init__(self, seed: int) -> None:
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=serve_logs, args=(seed, child),
+                                name="smoke-log-server", daemon=True)
+        self.proc.start()
+        self.urls = None
+
+    def wait_ready(self) -> tuple[str, str]:
+        """The two logs' URLs, once the server has made them."""
+        if self.urls is None:
+            check(self._conn.poll(900), "the log server never came up")
+            self.urls = self._conn.recv()
+        return self.urls
+
+    def ask(self, msg: str):
+        self.wait_ready()
+        self._conn.send(msg)
+        return self._conn.recv()
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            try:
+                self.wait_ready()
+                self._conn.send("stop")
+            except (OSError, EOFError):
+                pass
+            self.proc.join(10)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(10)
+
+
+def fetch_oracle(seed: int, marks: tuple[int, ...]):
+    """The served log's truth: the stream regenerated from ``seed`` by
+    the same stream calls as ``serve_logs`` makes (without the base64),
+    with the serials seen in the first ``m`` entries of the log for
+    each ``m`` of ``marks``. Returns (stream, {m: seen})."""
+    import numpy as np
+
+    stream = Stream(seed, cn_filter=True)
+    seen = np.zeros((FETCH_ENTRIES + 2,), bool)
+    out = {}
+    for i in range(FETCH_ENTRIES // FETCH_CHUNK):
+        _, _, tof, ctr = stream.batch(FETCH_CHUNK, SINK_REPLAY)
+        seen[ctr[~stream.filtered[tof]]] = True
+        if (i + 1) * FETCH_CHUNK in marks:
+            out[(i + 1) * FETCH_CHUNK] = seen.copy()
+    return stream, out
+
+
+def _fetch_ini(path: str, url: str, state: str, stream: Stream,
+               extra: dict) -> str:
+    """A ct-fetch ini: the log at ``url`` through the device pipeline,
+    aggregates to ``state``, and ``extra``'s directives."""
+    directives = {
+        "logList": url, "backend": "tpu", "batchSize": SINK_BATCH,
+        "tableBits": FETCH_TABLE_BITS, "deviceQueueDepth": 2,
+        "issuerCNFilter": ",".join(stream.cn_prefixes()),
+        "aggStatePath": state, "healthAddr": "",
+    }
+    directives.update(extra)
+    with open(path, "w") as f:
+        f.write("".join(f"{k} = {v}\n" for k, v in directives.items()))
+    return path
+
+
+def fetch_run(device, label: str, ini: str) -> dict:
+    """One ``ct_fetch.main`` over ``ini`` on the card: its wall time, its
+    kernel launches, the p50 of its stage samples, its pinned pool, and
+    its model (the sink ``build_sink`` made, seen through a wrapper)."""
+    import torch
+
+    from ct_mapreduce_tpu_torch.cmd import ct_fetch
+    from ct_mapreduce_tpu_torch.telemetry import metrics
+
+    built = {}
+    orig = ct_fetch.build_sink
+
+    def spy(config, **kw):
+        sink, model = orig(config, **kw)
+        built.update(sink=sink, model=model, bound=sink.row_buffer_bound(),
+                     cap0=model.aggregator.capacity)
+        return sink, model
+
+    ct_fetch.build_sink = spy
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = ct_fetch.main(["-config", ini, "-nobars"], device=device)
+    finally:
+        ct_fetch.build_sink = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check(rc == 0, f"ct-fetch {label}: exit code {rc}")
+    snap = metrics.get_sink().snapshot()
+    samples, counters = snap["samples"], snap["counters"]
+    sink, model = built["sink"], built["model"]
+    pool = sink._row_bufs
+    check(1 <= pool.allocated == pool.live <= built["bound"],
+          f"ct-fetch {label}: {pool.allocated} row buffers made, "
+          f"{pool.live} kept; want at most {built['bound']}")
+    check(all(b.is_pinned() for b in pool._free),
+          f"ct-fetch {label}: a row buffer is not pinned")
+    h2d = counters.get("ingest.h2d_bytes", 0.0)
+    check(h2d > 0 and counters.get("ingest.h2d_pinned_bytes", 0.0) == h2d,
+          f"ct-fetch {label}: copied bytes not all pinned")
+    check(launches["sha256_fp"] > 0 and launches["der_walk"] > 0,
+          f"ct-fetch {label}: K1 or K3 never ran")
+
+    def p50(key):
+        v = samples.get(key)
+        return v["p50"] if v else None
+
+    entries = int(counters.get("ct-fetch.insertCertificate", 0)
+                  + counters.get("ct-fetch.noChainError", 0)
+                  + counters.get("ct-fetch.parseLeafError", 0))
+    return {
+        "label": label, "wall_s": wall, "entries": entries,
+        "entries_per_s": entries / wall, "launches": launches,
+        "p50_s": {k: p50(f"ct-fetch.{k}") for k in (
+            "decodeBatch", "storeCertificate", "completeBatch")},
+        "get_entries_p50_s": next((v["p50"] for k, v in samples.items()
+                                   if k.endswith("getRawEntries")), None),
+        "row_buffers_made": pool.allocated, "row_buffers_kept": pool.live,
+        "row_buffer_bound": built["bound"],
+        "row_buffer_bytes": pool.capacity,
+        "capacity_start": built["cap0"],
+        "capacity_end": model.aggregator.capacity,
+        "model": model,
+    }
+
+
+def _report(ini: str, verbosity: int) -> str:
+    import contextlib
+    import io
+
+    from ct_mapreduce_tpu_torch.cmd import storage_statistics
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = storage_statistics.main(["-config", ini, "-v", str(verbosity)])
+    check(rc == 0, f"storage-statistics -v {verbosity}: exit code {rc}")
+    return buf.getvalue()
+
+
+def check_report(text: str, counts: dict, what: str) -> None:
+    """A ``-v 1``/``-v 2`` report's per-(issuer, expDate) lines and totals
+    against the oracle's ``counts``."""
+    import re
+
+    got, issuer = {}, None
+    for line in text.splitlines():
+        m = re.match(r"Issuer: (\S+) ", line)
+        if m:
+            issuer = m.group(1)
+        m = re.match(r"- (\S+) \((\d+) serials\)", line)
+        if m:
+            got[(issuer, m.group(1))] = int(m.group(2))
+    check(got == counts, f"{what}: per-issuer counts differ from the oracle")
+    total = re.search(r"overall totals: (\d+) issuers, (\d+) serials", text)
+    check(total is not None and int(total.group(2)) == sum(counts.values())
+          and int(total.group(1)) == len({i for i, _ in counts}),
+          f"{what}: totals differ from the oracle")
+
+
+def check_pems(root: str, stream: Stream, want: int) -> int:
+    """The PEM tree under ``root``: one file per first-seen (serial,
+    issuer, expiry date), ``want`` in all, each decoding to the leaf that
+    its file name's serial (the stream's counter, stamped on a template)
+    stands for, filed under that leaf's expiry date and issuer. The
+    files are read by 16 threads. Returns the number of files."""
+    import base64
+
+    from ct_mapreduce_tpu_torch.core.types import ExpDate
+
+    tpl = [(stream.rows[t, :stream.lens[t]].tobytes(),
+            int(stream.ser_off[t]), int(stream.ser_len[t]),
+            stream.truth[t]["issuer"],
+            ExpDate.from_unix_hour(stream.truth[t]["hour"]).id())
+           for t in range(len(stream.templates))]
+    paths = []
+    for dirpath, _, files in os.walk(root):
+        rel = os.path.relpath(dirpath, root).split(os.sep)
+        if rel[0] != "state" and len(rel) == 2:
+            paths += [(rel[0], rel[1], f, os.path.join(dirpath, f))
+                      for f in files if not f.startswith(".")]
+
+    def read(p):
+        with open(p, "rb") as fh:
+            return fh.read()
+
+    head, tail = b"-----BEGIN CERTIFICATE-----\n", b"-----END CERTIFICATE-----\n"
+    with ThreadPoolExecutor(max_workers=16) as pool:
+        pems = pool.map(read, [p[3] for p in paths], chunksize=256)
+        for (exp_id, issuer_id, name, _), pem in zip(paths, pems):
+            check(pem.startswith(head) and pem.endswith(tail),
+                  f"PEM {name}: not one CERTIFICATE block")
+            leaf = base64.b64decode(pem[len(head):-len(tail)])
+            sb = base64.urlsafe_b64decode(name)  # Serial.id() inverted
+            counter = int.from_bytes(sb[max(1, len(sb) - 8):], "big")
+            row, off, ln, issuer, exp = tpl[int(stream.template_of[counter])]
+            row = bytearray(row)
+            for i in range(min(8, ln - 1)):  # as _counter_tail stamps
+                row[off + ln - 1 - i] = (counter >> (8 * i)) & 0xFF
+            check(leaf == row and bytes(row[off:off + ln]) == sb
+                  and issuer_id == issuer and exp_id == exp,
+                  f"PEM {exp_id}/{issuer_id}/{name} does not decode to its "
+                  "leaf")
+    check(len(paths) == want,
+          f"{len(paths)} PEM files, want one per first-seen serial ({want})")
+    return len(paths)
+
+
+def fetch_phase(device, logs: LogProcess, seed: int) -> dict:
+    """Phase 10: ct-fetch on the card through ``cmd/ct_fetch.main`` and
+    ``cmd/storage_statistics.main``, from inis this phase writes."""
+    import shutil
+
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+
+    full_url, grow_url = logs.wait_ready()
+    stream, seen = fetch_oracle(seed, (RESUME_ENTRIES[0], RESUME_ENTRIES[1],
+                                       FETCH_ENTRIES))
+    d = os.path.join(HERE, "build", "smoke_fetch")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    counts, crls, dns = _oracle_snapshot(stream, seen[FETCH_ENTRIES])
+    out, drains = {}, {}
+    for name, extra in FETCH_RUNS.items():
+        state = os.path.join(d, f"{name}.npz")
+        ini = _fetch_ini(os.path.join(d, f"{name}.ini"), full_url, state,
+                         stream, extra)
+        run = fetch_run(device, name, ini)
+        model = run.pop("model")
+        check(run["entries"] == FETCH_ENTRIES,
+              f"ct-fetch {name}: {run['entries']} entries stored, want "
+              f"{FETCH_ENTRIES}")
+        check(run["capacity_end"] > run["capacity_start"],
+              f"ct-fetch {name}: the table never grew")
+        snap = model.drain()
+        check(snap.counts == counts and snap.crls == crls and snap.dns == dns,
+              f"ct-fetch {name}: the drain differs from the oracle")
+        r = TorchAggregator(capacity=1 << 10, device="cpu")
+        r.load_checkpoint(state)
+        check(r.drain() == snap,
+              f"ct-fetch {name}: the checkpoint drains differently")
+        drains[name] = snap
+        if name == "a":
+            for v in (1, 2):
+                check_report(_report(ini, v), counts, f"report -v {v}")
+        del model, r
+        out[name] = run
+        print(f"phase 10 ({name}) ct-fetch {extra or 'unstaged'}: "
+              f"{run['entries']} entries from the loopback log in "
+              f"{run['wall_s']:.1f} s, {run['entries_per_s']:.0f} entries/s; "
+              f"drain == oracle"
+              + (", reports -v 1/-v 2 == oracle" if name == "a" else "")
+              + f"; table {run['capacity_start']} -> {run['capacity_end']} "
+              f"slots; launches {run['launches']['sha256_fp']} K1, "
+              f"{run['launches']['der_walk']} K3; p50 s: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in run["p50_s"].items()
+                  if v is not None)
+              + f", a get-entries page {run['get_entries_p50_s']:.4f}"
+              + f"; pinned buffers made {run['row_buffers_made']}, kept "
+              f"{run['row_buffers_kept']} (bound {run['row_buffer_bound']})",
+              flush=True)
+    check(drains["a"] == drains["b"] == drains["c"],
+          "ct-fetch (a), (b) and (c) drain differently")
+
+    # (d) PEMs and resume: the first run over RESUME_ENTRIES[0] entries,
+    # the log grows, the second run resumes from both cursors.
+    certs = os.path.join(d, "certs")
+    state = os.path.join(d, "d.npz")
+    ini = _fetch_ini(os.path.join(d, "d.ini"), grow_url, state, stream,
+                     {"certPath": certs})
+    cursor_file = None
+    d_runs = []
+    for k, n_log in enumerate(RESUME_ENTRIES):
+        if k:
+            check(logs.ask("grow") == n_log, "the log did not grow")
+        logs.ask("starts")  # forget the requests before this run
+        run = fetch_run(device, f"d{k + 1}", ini)
+        model = run.pop("model")
+        starts = logs.ask("starts")
+        check(bool(starts) and starts[0] == (RESUME_ENTRIES[0] if k else 0),
+              f"ct-fetch d{k + 1}: first get-entries at {starts[:1]}, want "
+              f"{RESUME_ENTRIES[0] if k else 0}")
+        state_dir = os.path.join(certs, "state")
+        cursor_file = os.path.join(state_dir, os.listdir(state_dir)[0])
+        with open(cursor_file) as f:
+            cursor = json.load(f)["MaxEntry"]
+        check(cursor == n_log, f"ct-fetch d{k + 1}: cursor {cursor}, want "
+              f"{n_log}")
+        want = _oracle_snapshot(stream, seen[n_log])
+        snap = model.drain()
+        check((snap.counts, snap.crls, snap.dns) == want,
+              f"ct-fetch d{k + 1}: the drain differs from the oracle")
+        run["cursor"] = cursor
+        run["segments"] = sorted(f for f in os.listdir(d)
+                                 if f.startswith("d.npz.ckseg-"))
+        d_runs.append(run)
+        del model
+        print(f"phase 10 (d{k + 1}) ct-fetch with certPath: {run['entries']} "
+              f"entries in {run['wall_s']:.1f} s, "
+              f"{run['entries_per_s']:.0f} entries/s; cursor {cursor}; drain "
+              f"== oracle; launches {run['launches']['sha256_fp']} K1, "
+              f"{run['launches']['der_walk']} K3; ck02 segments "
+              f"{run['segments']}; pinned buffers made "
+              f"{run['row_buffers_made']}, kept {run['row_buffers_kept']}",
+              flush=True)
+    t0 = time.perf_counter()
+    n_pems = check_pems(certs, stream, sum(want[0].values()))
+    pem_check_s = time.perf_counter() - t0
+    check_report(_report(ini, 1), want[0], "report (d) -v 1")
+    # One uninterrupted run over the grown log, from an empty state.
+    one = _fetch_ini(os.path.join(d, "one.ini"), grow_url,
+                     os.path.join(d, "one.npz"), stream, {})
+    run = fetch_run(device, "d-one", one)
+    one_model = run.pop("model")
+    check(one_model.drain() == snap,
+          "ct-fetch (d): the resumed drain differs from one uninterrupted run")
+    del one_model
+    out["d"] = {"runs": d_runs, "one": run, "pems": n_pems,
+                "pem_check_s": pem_check_s}
+    print(f"phase 10 (d): resumed drain == one run over {RESUME_ENTRIES[1]} "
+          f"entries == oracle; {n_pems} PEM files, one per first-seen "
+          f"serial, each decoding to its leaf (checked in "
+          f"{pem_check_s:.1f} s)", flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def device_busy(trace_path: str) -> tuple[float, dict]:
     """From a torch.profiler Chrome trace: the microseconds in which the
     device ran a kernel, copy or memset (the union of their spans, so
@@ -1455,7 +1866,7 @@ def profile_sink(device, name: str, seed: int, out_dir: str) -> dict:
 
 
 def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
-                 preparsed: dict, sinks: dict) -> dict:
+                 preparsed: dict, sinks: dict, fetch: dict) -> dict:
     """The ``{"kernels": [...]}`` record: every kernel of the port with
     its launches on each main path and this run's measurements."""
     from ct_mapreduce_tpu_torch.tools import mosaic_probe as mp
@@ -1464,6 +1875,10 @@ def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
              "probe": probe["ladder_launches"]}
     paths.update({f"sink_{name}": sinks[name]["launches"]
                   for name in SINK_CONFIGS})
+    paths.update({f"fetch_{name}": fetch[name]["launches"]
+                  for name in FETCH_RUNS})
+    paths.update({f"fetch_{r['label']}": r["launches"]
+                  for r in fetch["d"]["runs"] + [fetch["d"]["one"]]})
 
     def by_path(key, i=None):
         return {p: (c[key] if i is None else c[key][i]) for p, c in paths.items()}
@@ -1532,6 +1947,16 @@ def main(argv=None) -> int:
           f"imported the port from {pkg_dir}, not from this checkout")
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    # Phase 10's log server makes its log while the earlier phases run.
+    logs = LogProcess(args.seed)
+    try:
+        return run_phases(args, device, logs, t_start)
+    finally:
+        logs.stop()
+
+
+def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
+    import torch
 
     card = card_line()
     print(card, flush=True)
@@ -1579,6 +2004,9 @@ def main(argv=None) -> int:
     ckpts = checkpoints(device, staged_model, drains["staged"], args.seed)
     del staged_model
     torch.cuda.empty_cache()
+    fetch = fetch_phase(device, logs, args.seed)
+    logs.stop()
+    torch.cuda.empty_cache()
     prof = None
     if args.profile:
         torch.cuda.empty_cache()
@@ -1591,7 +2019,7 @@ def main(argv=None) -> int:
     details = {"card": card, "builds": builds, "fingerprint": k1,
                "walker_kernel": k3, "probe": probe, "lanes": lanes,
                "big_table": big, "sinks": sinks, "checkpoints": ckpts,
-               "profile": prof, "sass": sass,
+               "fetch": fetch, "profile": prof, "sass": sass,
                "wall_s": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -1599,7 +2027,8 @@ def main(argv=None) -> int:
             json.dump(details, f, indent=1)
     print(json.dumps(details), flush=True)
     print(json.dumps(kernels_line(k1, k3, probe, lanes["walker"],
-                                  lanes["preparsed"], sinks)), flush=True)
+                                  lanes["preparsed"], sinks, fetch)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

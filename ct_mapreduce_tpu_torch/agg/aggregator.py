@@ -35,7 +35,7 @@ full base. Table rows leave the card in one copy under ``_table_lock``.
 Left out so far: filter capture (a checkpoint that carries one raises,
 ROADMAP item 10), the open-addressing layout (item 8), signature
 verification (item 11; its per-issuer vectors ride the checkpoints as
-zeros) and the ingest sink's overlap threads.
+zeros).
 """
 
 from __future__ import annotations
@@ -119,6 +119,9 @@ class IssuerRegistry:
                 self._by_issuer_id[iid] = idx
             return idx
 
+    def index_of_issuer_id(self, issuer_id: str) -> Optional[int]:
+        return self._by_issuer_id.get(issuer_id)
+
     def ids_from(self, start: int) -> list[str]:
         """Issuer-id strings for indices >= ``start``, in index order —
         the registry's append-only suffix since a shadow length was
@@ -182,13 +185,18 @@ class _Pending:
     """A submitted ingest whose device work is queued on the stream;
     ``complete()`` reads the results back and folds them. Completion is
     FIFO and claimed before the fold, so a fold that raises is never
-    re-applied; every fold holds the aggregator's fold lock."""
+    re-applied; every fold holds the aggregator's fold lock.
+
+    ``row_buf`` is free for the caller: the ingest sink hangs the pinned
+    host buffer the rows were copied from on it, and gives the buffer
+    back to its pool after ``complete()``."""
 
     def __init__(self, agg: "TorchAggregator", res: IngestResult) -> None:
         self._agg = agg
         self._res = res
         self._done = False
         self._lock = threading.Lock()
+        self.row_buf = None
 
     def _fold(self) -> None:
         raise NotImplementedError

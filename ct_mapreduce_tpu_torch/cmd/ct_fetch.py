@@ -1,0 +1,352 @@
+"""ct-fetch: continuous CT-log ingest (a port of
+``ct_mapreduce_tpu.cmd.ct_fetch`` for one worker).
+
+The reference binary (reference cmd/ct-fetch/ct-fetch.go:490-638):
+config init → storage wiring → telemetry → sync engine + store workers
+→ one downloader per log → health endpoint → signal-driven shutdown →
+optional runForever polling loop.
+
+``backend = tpu`` keeps the JAX package's directive and value: entries
+are packed into device batches and reduced by the port's aggregator,
+on CUDA unless the caller asks for the CPU (``main(device="cpu")`` or
+``-device cpu``); the aggregates checkpoint to ``aggStatePath`` for
+``storage-statistics``. Any other backend stores entry by entry through
+the database facade, as the reference does. ``profileDir`` writes a
+``torch.profiler`` trace of the run (the JAX package writes a
+``jax.profiler`` one).
+
+Directives whose subsystem the port does not have yet raise a
+``ValueError`` naming the ROADMAP item that brings it (see
+:func:`refuse_unported`); none is silently ignored. The lock-order
+witness (``CTMR_LOCK_WITNESS``, an environment switch, not a directive)
+is not installed.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import signal
+import sys
+import threading
+import time
+
+from ct_mapreduce_tpu_torch.config import CTConfig
+from ct_mapreduce_tpu_torch.config import profile as platprofile
+from ct_mapreduce_tpu_torch.engine import get_configured_storage, prepare_telemetry
+from ct_mapreduce_tpu_torch.ingest.health import HealthServer
+from ct_mapreduce_tpu_torch.ingest.sync import (
+    LogSyncEngine,
+    build_sink,
+    polling_delay,
+)
+from ct_mapreduce_tpu_torch.telemetry import flight, trace
+from ct_mapreduce_tpu_torch.utils import parse_duration
+
+
+class ProgressPrinter:
+    """Textual stand-in for the reference's mpb progress bars
+    (ct-fetch.go:317-330); disabled by -nobars."""
+
+    def __init__(self, engine: LogSyncEngine, period_s: float):
+        self.engine = engine
+        self.period_s = max(period_s, 0.05)
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._last: dict[str, tuple[float, int]] = {}
+
+    def _line(self) -> str:
+        parts = []
+        now = time.monotonic()
+        for url, (pos, end) in sorted(self.engine.progress().items()):
+            prev_t, prev_pos = self._last.get(url, (now, pos))
+            rate = (pos - prev_pos) / (now - prev_t) if now > prev_t else 0.0
+            self._last[url] = (now, pos)
+            pct = 100.0 * pos / end if end else 100.0
+            # ETA decorator parity with the reference's mpb bars
+            # (ct-fetch.go:317-330).
+            if rate > 0 and end > pos:
+                secs = (end - pos) / rate
+                eta = (f"{secs / 3600:.1f}h" if secs >= 3600
+                       else f"{secs / 60:.0f}m" if secs >= 60
+                       else f"{secs:.0f}s")
+            else:
+                eta = "--"
+            parts.append(
+                f"{url}: {pos}/{end} ({pct:.1f}%) {rate:,.0f}/s eta {eta}"
+            )
+        return " | ".join(parts)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.period_s):
+            line = self._line()
+            if line:
+                print(f"\r{line}", end="", file=sys.stderr, flush=True)
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, name="progress",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join()
+        print(file=sys.stderr)
+
+
+def _env_int(name: str) -> int:
+    try:
+        return int(os.environ.get(name, "0"))
+    except ValueError:
+        return 0  # unparseable values are ignored, as the config layer does
+
+
+def refuse_unported(config: CTConfig) -> None:
+    """Raise a ``ValueError`` naming the ROADMAP item of the first
+    directive whose subsystem the port does not have yet."""
+    unported = [
+        (max(config.num_workers, _env_int("CTMR_NUM_WORKERS")) > 1,
+         "numWorkers > 1 (the ingest fleet)", "item 12"),
+        (bool(config.coordinator_backend
+              or os.environ.get("CTMR_COORDINATOR")),
+         "coordinatorBackend (the fleet coordinator)", "item 12"),
+        (bool(config.checkpoint_period
+              or os.environ.get("CTMR_CHECKPOINT_PERIOD")),
+         "checkpointPeriod (the fleet's checkpoint cadence)", "item 12"),
+        (bool(config.emit_filter
+              or os.environ.get("CTMR_EMIT_FILTER", "0") == "1"),
+         "emitFilter (filter emission)", "item 10"),
+        (config.query_port != 0, "queryPort (the query plane)", "item 9"),
+        (config.verify_signatures
+         or os.environ.get("CTMR_VERIFY", "0") == "1",
+         "verifySignatures (the verify lane)", "item 11"),
+        (config.metrics_port != 0,
+         "metricsPort (the Prometheus endpoint)", "item 14"),
+        (config.fleet_metrics is True, "fleetMetrics (fleet observability)",
+         "item 14"),
+        (bool(config.slo_max_ingest_lag or config.slo_max_checkpoint_age
+              or config.slo_max_filter_lag or config.slo_max_serve_p99_ms),
+         "the SLO directives (fleet observability)", "item 14"),
+    ]
+    for needed, what, item in unported:
+        if needed:
+            raise ValueError(f"{what} is not ported yet "
+                             f"(ROADMAP.md queue 1 {item})")
+
+
+def _pop_device(argv: list[str]) -> tuple[list[str], str]:
+    """Take ``-device X`` / ``-device=X`` out of ``argv`` (the device is
+    a property of the run, not a directive)."""
+    out, device, i = [], "", 0
+    while i < len(argv):
+        a = argv[i]
+        if a in ("-device", "--device") and i + 1 < len(argv):
+            device = argv[i + 1]
+            i += 2
+            continue
+        if a.startswith(("-device=", "--device=")):
+            device = a.split("=", 1)[1]
+        else:
+            out.append(a)
+        i += 1
+    return out, device
+
+
+def _start_profiler():
+    """A ``torch.profiler`` session over the run (host phases and, on
+    CUDA, device kernels), or None when it cannot start."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profiler(prof, profile_dir: str) -> str:
+    prof.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"ct-fetch-{os.getpid()}.trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+def main(argv: list[str] | None = None, device=None) -> int:
+    """Run ct-fetch. ``device`` (or the ``-device`` flag) names the
+    device of ``backend = tpu``; CUDA when neither does."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    argv, flag_device = _pop_device(argv)
+    device = device or flag_device or None
+    config = CTConfig.load(argv)
+    log_urls = config.log_urls()
+    if not log_urls:
+        print(config.usage(), file=sys.stderr)
+        print("\nerror: logList is required", file=sys.stderr)
+        return 2
+    refuse_unported(config)
+
+    # Platform profile: pin the tuned-knob data file before any
+    # subsystem resolves its knobs.
+    platprofile.set_active_profile(config.platform_profile)
+
+    database, _cache, _backend = get_configured_storage(config)
+    dumper = prepare_telemetry("ct-fetch", config)
+    if config.trace_path:
+        trace.enable(config.trace_path)
+    # Flight recorder: a crash dumps the trace ring + last metric
+    # snapshots next to the run (CTMR_FLIGHT_DIR overrides the
+    # directory). Uninstalled in the finally: main() leaves no global
+    # hooks behind, it is re-entered by tests and runForever wrappers.
+    flight.install(signals=False, excepthook=False)
+    if config.issuer_cn_filter:
+        # The reference logs a stale "unsupported" warning here
+        # (ct-fetch.go:498-499) but enforces the filter anyway; we just
+        # enforce it.
+        print(f"IssuerCNFilter enabled: {config.issuer_cn_filters()}",
+              file=sys.stderr)
+
+    run_stage = {"stage": "init"}
+    sink, model = build_sink(config, device=device, database=database,
+                             backend=_backend)
+
+    checkpoint_hook = None
+    if model is not None and config.agg_state_path:
+        # Snapshot device aggregates before every durable cursor write —
+        # a crash must never leave the cursor ahead of aggregate state.
+        def checkpoint_hook():
+            sink.checkpointed_save(model.save)
+    engine = LogSyncEngine(
+        sink,
+        database,
+        num_threads=config.num_threads,
+        offset=config.offset,
+        limit=config.limit,
+        save_period_s=parse_duration(config.save_period),
+        checkpoint_hook=checkpoint_hook,
+        # The device path streams whole responses to the native decoder.
+        raw_batches=model is not None,
+    )
+    engine.start_store_threads()
+
+    health = None
+    if config.health_addr:
+        try:
+            health = HealthServer(
+                engine, parse_duration(config.polling_delay_mean),
+                addr=config.health_addr,
+            )
+            health.start()
+        except OSError as err:
+            print(f"health endpoint disabled: {err}", file=sys.stderr)
+            health = None
+
+    def handle_signal(signum, frame):
+        print(f"\nsignal {signum}: stopping after current batches...",
+              file=sys.stderr)
+        if signum == signal.SIGTERM:
+            # Orchestrator kill: leave the post-mortem artifact before
+            # draining (the drain itself may be what's wedged).
+            flight.dump(f"signal {signum} (SIGTERM)")
+        engine.signal_stop()
+
+    def handle_dump_signal(signum, frame):
+        path = flight.dump(f"signal {signum} (SIGUSR1)")
+        print(f"\nsignal {signum}: flight record "
+              f"{path or 'not written'}", file=sys.stderr)
+
+    # Previous handlers are restored in the finally below (main() must
+    # leave no global hooks behind).
+    prev_handlers = {}
+    for signum, handler in ((signal.SIGINT, handle_signal),
+                            (signal.SIGTERM, handle_signal),
+                            (getattr(signal, "SIGUSR1", None),
+                             handle_dump_signal)):
+        if signum is None:
+            continue
+        try:
+            prev_handlers[signum] = signal.signal(signum, handler)
+        except (ValueError, OSError):
+            pass  # not the main thread: the caller owns the signals
+
+    printer = None
+    if not config.nobars:
+        printer = ProgressPrinter(
+            engine, parse_duration(config.output_refresh_period)
+        )
+        printer.start()
+
+    prof = None
+    if config.profile_dir:
+        try:
+            prof = _start_profiler()
+        except Exception as err:
+            print(f"profiling disabled: {err}", file=sys.stderr)
+
+    final_round_errors = False
+    try:
+        while True:
+            run_stage["stage"] = "syncing"
+            for url in log_urls:
+                engine.sync_log(url)
+            engine.wait_for_downloads()
+            run_stage["stage"] = "draining"
+            engine.stop()  # drain queue, flush sink
+            if model is not None:
+                run_stage["stage"] = "saving"
+                model.save()
+            run_stage["stage"] = "idle"
+            # Drain this round's errors so runForever doesn't re-print
+            # (or unboundedly accumulate) them across polls.
+            final_round_errors = bool(engine.errors)
+            for e in engine.errors:
+                print(f"error: {e}", file=sys.stderr)
+            engine.errors.clear()
+            if not config.run_forever or engine.stop_event.is_set():
+                break
+            engine.start_store_threads()  # next round
+            delay = polling_delay(
+                parse_duration(config.polling_delay_mean),
+                config.polling_delay_std_dev,
+            )
+            if engine.stop_event.wait(delay):
+                break
+        if hasattr(sink, "close"):
+            sink.close()  # stops the overlap pipeline's threads
+    except BaseException as err:
+        # The post-mortem artifact for a crashing run: spans + metric
+        # snapshots as of the moment the main loop died.
+        flight.dump(f"unhandled exception in ct-fetch: {err!r}")
+        raise
+    finally:
+        if prof is not None:
+            try:
+                path = _stop_profiler(prof, config.profile_dir)
+                print(f"profile written to {path}", file=sys.stderr)
+            except Exception as err:
+                # Trace serialization failures must not mask the real
+                # exception or skip the remaining shutdown steps.
+                print(f"profiler stop failed: {err}", file=sys.stderr)
+        run_stage["stage"] = "stopped"
+        if printer:
+            printer.stop()
+        if health:
+            health.stop()
+        if dumper:
+            dumper.stop()
+        if trace.enabled():
+            path = trace.export()
+            if path:
+                print(f"trace written to {path}", file=sys.stderr)
+        flight.uninstall()
+        for signum, prev in prev_handlers.items():
+            with contextlib.suppress(ValueError, OSError):
+                signal.signal(signum, prev)
+        engine.cleanup()
+    return 1 if final_round_errors else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,3 +1,3 @@
-"""Layered configuration (copy of the directives the port reads)."""
+"""Layered configuration (a copy of the JAX package's ``CTConfig``)."""
 
 from ct_mapreduce_tpu_torch.config.config import CTConfig  # noqa: F401

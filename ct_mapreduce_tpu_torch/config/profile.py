@@ -47,10 +47,19 @@ PROFILE_VERSION = 1
 _cache: dict[str, Optional[dict]] = {}
 
 
+_active_path: Optional[str] = None
+
+
+def set_active_profile(path: Optional[str]) -> None:
+    """Pin the active profile path (ct-fetch calls this with the
+    ``platformProfile`` directive before building any subsystem).
+    ``None``/empty falls back to the CTMR_PLATFORM_PROFILE env."""
+    global _active_path
+    _active_path = path or None
+
+
 def active_profile_path() -> str:
-    """The active profile: ``CTMR_PLATFORM_PROFILE`` (the
-    ``platformProfile`` directive comes with the CLI slice)."""
-    return os.environ.get("CTMR_PLATFORM_PROFILE", "")
+    return _active_path or os.environ.get("CTMR_PLATFORM_PROFILE", "")
 
 
 def current_fingerprint() -> dict:

@@ -22,6 +22,7 @@ Field semantics mirror the reference:
 
 from __future__ import annotations
 
+import base64
 from dataclasses import dataclass, field
 from datetime import datetime, timezone
 
@@ -287,6 +288,21 @@ class CertFields:
         return int(self.not_after.timestamp()) // 3600
 
 
+def raw_serial_bytes(der: bytes) -> bytes:
+    """Extract the raw serialNumber content bytes, preserving leading
+    zeros (reference storage/types.go:165-178)."""
+    _, _, cert_off = read_tlv(der, 0)
+    _, _, tbs_off = read_tlv(der, cert_off)
+    pos = tbs_off
+    tag, _, _ = read_tlv(der, pos)
+    if tag == 0xA0:  # [0] EXPLICIT version
+        pos = _skip(der, pos)
+    tag, length, content_off = read_tlv(der, pos)
+    if tag != TAG_INTEGER:
+        raise DerError(f"serialNumber is not an INTEGER (tag {tag:#x})")
+    return bytes(der[content_off : content_off + length])
+
+
 def _parse_general_names_uris(buf: bytes, off: int, end: int) -> list[str]:
     """Collect uniformResourceIdentifier ([6]) GeneralNames in [off, end)."""
     uris = []
@@ -457,3 +473,31 @@ def parse_cert(der: bytes) -> CertFields:
         tbs_off=cert_off,
         tbs_len=_skip(der, cert_off) - cert_off,
     )
+
+
+def pem_to_der(pem: bytes | str) -> bytes:
+    """Decode the first PEM CERTIFICATE block (or pass DER through)."""
+    if isinstance(pem, str):
+        pem = pem.encode("ascii")
+    # Accept files with leading text (e.g. `openssl x509 -text` output)
+    if b"-----BEGIN" not in pem:
+        return bytes(pem)
+    pem = pem[pem.index(b"-----BEGIN") :]
+    lines = []
+    inside = False
+    for line in pem.splitlines():
+        line = line.strip()
+        if line.startswith(b"-----BEGIN"):
+            inside = True
+            continue
+        if line.startswith(b"-----END"):
+            break
+        if inside:
+            lines.append(line)
+    return base64.b64decode(b"".join(lines))
+
+
+def der_to_pem(der: bytes) -> bytes:
+    b64 = base64.b64encode(der)
+    body = b"\n".join(b64[i : i + 64] for i in range(0, len(b64), 64))
+    return b"-----BEGIN CERTIFICATE-----\n" + body + b"\n-----END CERTIFICATE-----\n"

@@ -19,26 +19,45 @@ when it exists and ``save()`` writes one (ck01 or a ck02 chain, per
 
 from __future__ import annotations
 
+import math
 import os
 from datetime import datetime, timezone
 
 import numpy as np
+import torch
 
 from ct_mapreduce_tpu_torch.agg.aggregator import (
     AggregateSnapshot, IngestResult, TorchAggregator)
 from ct_mapreduce_tpu_torch.config import CTConfig
+from ct_mapreduce_tpu_torch.device import resolve_device
 from ct_mapreduce_tpu_torch.native import leafpack
+from ct_mapreduce_tpu_torch.parallel.mesh import parse_mesh_shape
+
+
+def mesh_devices(config: CTConfig, device=None) -> int:
+    """The devices ``meshShape`` asks for, as the JAX package resolves
+    it: the fixed size of the shape, or with an empty shape (or a
+    ``-1`` wildcard) every visible device. On the CPU (``device="cpu"``)
+    one device is visible."""
+    spec = parse_mesh_shape(config.mesh_shape)
+    if -1 not in spec.axis_sizes:
+        return spec.fixed_size
+    dev = resolve_device(device)
+    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return math.prod(spec.resolve(visible))
 
 
 def build_aggregator(config: CTConfig, mesh=None,
                      device=None) -> TorchAggregator:
     """Single-device aggregator from config, on CUDA unless ``device``
-    names another. The checkpoint knobs are pinned from the config's
-    directives (unset ones resolve through env and defaults)."""
-    if mesh is not None or config.mesh_shape:
+    names another. ``meshShape`` must resolve to one device (``shard:1``,
+    or empty with one device visible); more is refused. The checkpoint
+    knobs are pinned from the config's directives (unset ones resolve
+    through env and defaults)."""
+    if mesh is not None or mesh_devices(config, device) != 1:
         raise NotImplementedError(
-            "more than one device is not ported yet (ROADMAP.md, queue 1, "
-            "multi-GPU)")
+            f"meshShape {config.mesh_shape!r}: more than one device is not "
+            "ported yet (ROADMAP.md queue 1 item 12, multi-GPU)")
     now = (
         datetime.fromtimestamp(0, tz=timezone.utc)
         if config.log_expired_entries

@@ -3,7 +3,9 @@
 A bounded ring of Chrome trace-event "complete" spans, written as JSON
 on :func:`export`. Off by default: :func:`span` then returns a shared
 no-op context manager, so an instrumented hot path costs one global
-read. The span names are the JAX package's (``ingest.decode``,
+read. Instant events (``instant``) mark one-off moments such as a
+stage failure; the flight recorder reads the ring through
+``snapshot_events``. The span names are the JAX package's (``ingest.decode``,
 ``ingest.h2d``, ``device.step``, ``device.fold``, ...), so one trace
 viewer reads either package's traces. Not copied: the JAX profiler
 annotations, the fleet trace context and the ``CTMR_TRACE`` switch at
@@ -92,6 +94,16 @@ class SpanTracer:
     def span(self, name: str, cat: str = "", **args) -> _Span:
         return _Span(self, name, cat, args)
 
+    def instant(self, name: str, cat: str = "", **args) -> None:
+        ev = {"name": name, "ph": "i", "s": "t",  # thread-scoped instant
+              "ts": (time.perf_counter_ns() - self._t0_ns) / 1e3,
+              "pid": self._pid, "tid": self._tid()}
+        if cat:
+            ev["cat"] = cat
+        if args:
+            ev["args"] = dict(args)
+        self._events.append(ev)
+
     def events(self) -> list[dict]:
         """Ring contents plus thread-name metadata, oldest first."""
         with self._threads_lock:
@@ -118,6 +130,10 @@ class SpanTracer:
 _tracer: Optional[SpanTracer] = None
 
 
+def enabled() -> bool:
+    return _tracer is not None
+
+
 def enable(path: Optional[str] = None,
            ring_size: int = DEFAULT_RING) -> SpanTracer:
     """Install the global tracer (re-enabling keeps the live ring and
@@ -141,6 +157,18 @@ def span(name: str, cat: str = "", **args):
     if t is None:
         return _NULL_SPAN
     return t.span(name, cat, **args)
+
+
+def instant(name: str, cat: str = "", **args) -> None:
+    t = _tracer
+    if t is not None:
+        t.instant(name, cat, **args)
+
+
+def snapshot_events() -> list[dict]:
+    """Current ring contents (for the flight recorder); [] when off."""
+    t = _tracer
+    return t.events() if t is not None else []
 
 
 def export(path: Optional[str] = None) -> Optional[str]:

@@ -476,3 +476,92 @@ def test_checkpoint_round_trip_card_and_cpu(cuda, tmp_path):
                 r.load_checkpoint(path)
                 assert r.table.rows.device.type == torch.device(dev).type
                 assert (ckpt_state_digest(r), r.drain()) == want
+
+
+@pytest.mark.parametrize("kw", [
+    dict(overlap_workers=2, device_queue_depth=1),
+    dict(overlap_workers=2, chunks_per_dispatch=2, staging_depth=1)],
+    ids=["overlap-unstaged", "overlap-staged"])
+def test_overlap_sink_pool_bound_on_card(cuda, kw):
+    """The overlapped sink on the card: decoded chunks wait for the submit
+    thread holding pinned buffers, and the pool keeps no more than
+    ``row_buffer_bound()`` (depth + the prepared window + 2) with a slow
+    fold; the drain equals the CPU path's."""
+    import time
+
+    pages = _sink_pages(32, 64)
+    want, _, _ = _sink_drain("cpu", pages, **kw)
+
+    from ct_mapreduce_tpu_torch.ingest import sync
+
+    orig = sync.AggregatorSink._complete_item
+    bounds = []
+
+    def slow(self, pending, der_of):
+        bounds.append(self.row_buffer_bound())
+        time.sleep(0.01)
+        orig(self, pending, der_of)
+
+    sync.AggregatorSink._complete_item = slow
+    try:
+        got, counters, sink = _sink_drain(cuda, pages, **kw)
+    finally:
+        sync.AggregatorSink._complete_item = orig
+    assert got == want and want[3] > 1500
+    assert counters["ingest.h2d_pinned_bytes"] == counters["ingest.h2d_bytes"]
+    pool = sink._row_bufs
+    bound = bounds[0]
+    assert bound == 1 + (2 + 1) + 2
+    assert 1 <= pool.allocated == pool.live <= bound
+    assert all(b.is_pinned() for b in pool._free)
+
+
+def test_ct_fetch_on_card_matches_cpu(cuda, tmp_path):
+    """One ct-fetch run (``cmd/ct_fetch.main``, ``backend = tpu``, with
+    ``certPath`` and ``overlapWorkers`` 2) against the port's loopback log
+    over HTTP on the card: its drain, cursor and PEM tree equal the same
+    run with ``device="cpu"``, and ``storage-statistics`` prints the same
+    report for both."""
+    import contextlib
+    import io
+    import os
+
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+    from ct_mapreduce_tpu_torch.cmd import ct_fetch, storage_statistics
+    from ct_mapreduce_tpu_torch.utils.fakelog import FakeLog, LogServer
+
+    log = FakeLog()
+    for lis, eds in _sink_pages(6, 64):
+        for li, ed in zip(lis, eds):
+            log.add_raw(li, ed)
+    log.max_batch = 100
+    out = {}
+    with LogServer(log) as srv:
+        for dev in ("cpu", cuda):
+            d = tmp_path / str(torch.device(dev).type)
+            d.mkdir()
+            ini = d / "ct.ini"
+            ini.write_text(
+                f"logList = {srv.url}\nbackend = tpu\nbatchSize = 64\n"
+                f"tableBits = 10\naggStatePath = {d}/agg.npz\n"
+                f"certPath = {d}/certs\noverlapWorkers = 2\nhealthAddr = \n")
+            assert ct_fetch.main(["-config", str(ini), "-nobars"],
+                                 device=dev) == 0
+            r = TorchAggregator(capacity=1 << 10, device="cpu")
+            r.load_checkpoint(str(d / "agg.npz"))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert storage_statistics.main(
+                    ["-config", str(ini), "-v", "2"]) == 0
+            report = "\n".join(ln for ln in buf.getvalue().splitlines()
+                               if "LastUpdateTime" not in ln)
+            tree = {}
+            for dirpath, _, files in os.walk(d / "certs"):
+                for f in files:
+                    if "state" not in dirpath:
+                        p = os.path.join(dirpath, f)
+                        with open(p, "rb") as fh:
+                            tree[os.path.relpath(p, d)] = fh.read()
+            out[dev if dev == "cpu" else "cuda"] = (r.drain(), report, tree)
+    assert out["cuda"] == out["cpu"]
+    assert out["cpu"][0].total > 300 and len(out["cpu"][2]) > 300

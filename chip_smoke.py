@@ -44,6 +44,13 @@ Phases, none of them caught — any failure exits non-zero:
 6. the pre-parsed lane over the same batches and config: held to the
    oracle, and its ``drain()`` to the walker lane's; its insert timed
    as in 5;
+5b. the open-addressing table (``CTMR_TABLE=open``): the first 2 of
+   those batches from ``tableBits`` 21 (2,097,152 slots of 20 B, growing
+   once) through the walker lane, then the pre-parsed lane, each drain
+   held to the oracle and to phase 5's bucket drain after the same 2
+   batches; the step's open insert timed as in 5; the walker lane's
+   open table saved as ck01 on the card and loaded into a CPU
+   aggregator to the same drain and ``ckpt_state_digest``;
 7. a 2 GiB table (``tableBits`` 26, 2^22 buckets) prefilled to about 50%
    of its slots with random keys through the port's insert, then one
    pre-parsed batch on top; ``was_unknown`` against the oracle and
@@ -83,11 +90,28 @@ Phases, none of them caught — any failure exits non-zero:
    and ct-fetch resumes from the cursor in the PEM tree's state file
    and from ``aggStatePath`` to the drain of one run over all 262,144
    and the oracle's, with one PEM file per first-seen serial, each
-   decoding to its leaf.
+   decoding to its leaf;
+11. the serve plane on the card: (i) a ``QueryServer`` on port 0 over
+   phase 9's restored 3,145,728-slot bucket table (device views, 2
+   replicas pinned on the card, a 4,096-entry cache) answers 65,536
+   queries over HTTP (64 POSTs of 1,024 from 4 client threads): half
+   serials the stream holds (the long-CN issuer's host-lane serials
+   among them), half never logged under the same issuers (some longer
+   than the fingerprint window), every answer held to the host oracle;
+   then the pinned ``contains`` at 1,024 and 65,536 keys, timed beside
+   ``contains_np``; (ii) the same over phase 5b's open table; (iii)
+   ct-fetch with ``queryPort`` over a 131,072-entry log while a client
+   queries ``/query``: no never-logged serial ever answers known, a
+   serial known at one epoch stays known at later ones, then
+   ``ct-query-torch`` and ``ct-getcert-torch -queryAddr`` run against
+   the plane as processes (the PEM equal to the log's entry). No view
+   may fall back to the host (``serve.device_fallback`` stays 0), and
+   every replica's rows are pinned on CUDA.
 
 The kernels' launch counts are set to 0 just before each main path
-(walker, pre-parsed, probe ladder, each sink configuration, each
-ct-fetch run) and read just after it. Prints the
+(walker, pre-parsed, both lanes on the open table, probe ladder, each
+sink configuration, each ct-fetch run, the served ct-fetch) and read
+just after it. Prints the
 card line, a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -785,23 +809,32 @@ class InsertCount:
         return self.calls
 
 
+def _clone_table(table):
+    """A copy of a dedup table of either layout."""
+    return type(table)(table.rows.clone(), table.count.clone())
+
+
 def insert_cost(model, stream: Stream, idx_of, n: int, replay: float,
                 lane: str) -> dict:
-    """One step's bucket insert, apart from the timed batches: one more
-    batch goes through the lane with the step's insert (the call of
-    width ``n``) captured, with a copy of the table rows before it. The
-    call is then replayed on fresh copies of those rows, each replay
-    timed with CUDA events and its verdicts held to the captured ones.
+    """One step's insert (the table's layout), apart from the timed
+    batches: one more batch goes through the lane with the step's insert
+    (the call of width ``n``) captured, with a copy of the table before
+    it. The call is then replayed on fresh copies of that table, each
+    replay timed with CUDA events (the open insert reads ``pending``
+    back every round, so each replay also ends synchronised) and its
+    verdicts held to the captured ones. ``_extra_ctr`` holds the extra
+    batch's counters that pass the filters (for a later oracle).
 
-    Its byte bound: the distinct bucket rows its valid keys' home
-    buckets name, read once, and those of its new keys, written once
-    (512 B each; hops are left out, so this bounds from below), plus
-    16 B of key, 4 B of meta and 1 B of valid in and 2 B of verdicts out
-    a lane."""
+    Its byte bound: the distinct home rows its valid keys name, read
+    once, and the rows its new keys fill, written once (bucket: the
+    home bucket's 512 B row; open: the 20 B slot row; hops and later
+    probe positions are left out, so this bounds from below), plus 16 B
+    of key, 4 B of meta and 1 B of valid in and 2 B of verdicts out a
+    lane."""
     import numpy as np
     import torch
 
-    from ct_mapreduce_tpu_torch.ops import buckettable, pipeline
+    from ct_mapreduce_tpu_torch.ops import buckettable, hashtable, pipeline
 
     fn = pipeline.table_insert
     captured = []
@@ -809,14 +842,14 @@ def insert_cost(model, stream: Stream, idx_of, n: int, replay: float,
     def run(table, keys, meta, valid, **kwargs):
         if keys.shape[0] != n or captured:
             return fn(table, keys, meta, valid, **kwargs)
-        before = buckettable.BucketTable(table.rows.clone(), table.count.clone())
+        before = _clone_table(table)
         out = fn(table, keys, meta, valid, **kwargs)
         captured.append((before, keys, meta, valid, kwargs, out[1], out[2]))
         return out
 
     pipeline.table_insert = run
     try:
-        data, length, tof, _ctr = stream.batch(n, replay)
+        data, length, tof, ctr = stream.batch(n, replay)
         model.ingest_packed(data, length, idx_of[tof], np.ones((n,), bool))
     finally:
         pipeline.table_insert = fn
@@ -826,7 +859,7 @@ def insert_cost(model, stream: Stream, idx_of, n: int, replay: float,
     end = torch.cuda.Event(enable_timing=True)
     ms = []
     for _ in range(TIMED_REPS):
-        table = buckettable.BucketTable(before.rows.clone(), before.count.clone())
+        table = _clone_table(before)
         start.record()
         _t, got_new, got_ovf = fn(table, keys, meta, valid, **kwargs)
         end.record()
@@ -834,15 +867,23 @@ def insert_cost(model, stream: Stream, idx_of, n: int, replay: float,
         ms.append(start.elapsed_time(end))
         check(torch.equal(got_new, new) and torch.equal(got_ovf, ovf),
               f"{lane}: a replayed insert gave other verdicts")
-    home = buckettable._home_bucket(buckettable._desentinel(keys),
-                                    before.n_buckets)
-    rows_read = int(torch.unique(home[valid]).numel())
-    rows_written = int(torch.unique(home[new]).numel())
-    moved = ((rows_read + rows_written) * buckettable.ROW_WORDS * 4
-             + n * (16 + 4 + 1 + 2))
+    if isinstance(before, hashtable.TableState):
+        home = hashtable._home_slot(hashtable._desentinel(keys),
+                                    before.capacity)
+        rows_read = int(torch.unique(home[valid]).numel())
+        rows_written = int(new.sum())
+        row_bytes = hashtable.ROW_WORDS * 4
+    else:
+        home = buckettable._home_bucket(buckettable._desentinel(keys),
+                                        before.n_buckets)
+        rows_read = int(torch.unique(home[valid]).numel())
+        rows_written = int(torch.unique(home[new]).numel())
+        row_bytes = buckettable.ROW_WORDS * 4
+    moved = (rows_read + rows_written) * row_bytes + n * (16 + 4 + 1 + 2)
     return {"ms": median(ms), "ms_min": min(ms), "ms_max": max(ms),
             "rows_read": rows_read, "rows_written": rows_written,
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "_extra_ctr": ctr[~stream.filtered[tof]]}
 
 
 def _config(batch_log2: int, table_bits: int, preparsed: bool,
@@ -877,18 +918,28 @@ def _oracle_snapshot(stream: Stream, seen):
 
 
 def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
-              table_bits: int, replay: float, preparsed: bool) -> dict:
+              table_bits: int, replay: float, preparsed: bool,
+              drain_after: int = 0, keep: bool = False) -> dict:
     """One lane through ``IngestModel.ingest_packed`` over ``n_batches``
-    of ``stream``, every batch and the drain held to the oracle."""
+    of ``stream``, every batch and the drain held to the oracle, in the
+    table layout ``CTMR_TABLE`` selects. ``drain_after`` also keeps the
+    drain after that many batches (``drain_at``); ``keep`` keeps the
+    model (``_model``) and the truth of everything it ingested, the
+    insert-cost batch included (``_truth``: the stream and its seen
+    counters)."""
     import numpy as np
 
     from ct_mapreduce_tpu_torch.models.ingest_model import IngestModel
+    from ct_mapreduce_tpu_torch.ops import hashtable
 
-    lane = "preparsed" if preparsed else "walker"
     model = IngestModel.from_config(
         _config(batch_log2, table_bits, preparsed, stream.cn_prefixes()),
         device=device)
     agg = model.aggregator
+    layout = ("open" if isinstance(agg.table, hashtable.TableState)
+              else "bucket")
+    lane = ("preparsed" if preparsed else "walker") + (
+        "-open" if layout == "open" else "")
     idx_of = stream.issuer_indices(model)
     cap0 = agg.capacity
     n = 1 << batch_log2
@@ -897,7 +948,8 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
     stages = StageTimes(model)
     inserts = InsertCount()
     reset_counts()
-    for _ in range(n_batches):
+    drain_at = None
+    for i in range(n_batches):
         t0 = time.perf_counter()
         data, length, tof, ctr = stream.batch(n, replay)
         t1 = time.perf_counter()
@@ -918,10 +970,12 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
               f"{int((res.was_unknown != want).sum())} lanes")
         check(np.array_equal(res.filtered, ~passing),
               f"{lane}: filter verdicts differ")
+        if i + 1 == drain_after:
+            drain_at = model.drain()
     launches = read_counts()
     stage_s = stages.close()
     insert_calls = inserts.close()
-    check(insert_calls > 0, f"{lane}: no bucket insert on the main path")
+    check(insert_calls > 0, f"{lane}: no {layout} insert on the main path")
     check(launches["sha256_fp"] > 0,
           f"{lane}: the fingerprint kernel never ran on the main path")
     check(preparsed or launches["der_walk"] > 0,
@@ -936,7 +990,8 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
     check(snap.total == int(seen.sum()), f"{lane}: drained total differs")
     entries = n_batches * n
     out = {
-        "lane": lane, "batches": n_batches, "batch": n, "entries": entries,
+        "lane": lane, "layout": layout, "batches": n_batches, "batch": n,
+        "entries": entries,
         "cn_prefixes": list(stream.cn_prefixes()),
         "unique_serials": int(seen.sum()), "launches": launches,
         "capacity_start": cap0, "capacity_end": agg.capacity,
@@ -951,12 +1006,21 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
     out["insert"] = dict(insert_cost(model, stream, idx_of, n, replay, lane),
                          calls=insert_calls)
     insert = out["insert"]
+    extra_ctr = insert.pop("_extra_ctr")
+    if drain_after:
+        out["drain_at"] = drain_at
+    if keep:
+        truth = np.zeros((max(seen.shape[0], stream.next_counter + 1),),
+                         bool)
+        truth[: seen.shape[0]] = seen
+        truth[extra_ctr] = True
+        out["_model"], out["_truth"] = model, (stream, truth)
     parts = ", ".join(f"{k} {median(v):.3f}" for k, v in stage_s.items() if v)
     print(f"{lane} lane: {entries} entries in {n_batches} batches of {n}, "
           f"{out['unique_serials']} unique, {out['metrics']['host_lane']} "
           f"host-lane lanes; drain == oracle; table {cap0} -> "
           f"{out['capacity_end']} "
-          f"slots; launches {launches['sha256_fp']} K1, "
+          f"slots ({layout}); launches {launches['sha256_fp']} K1, "
           f"{launches['der_walk']} K3; {out['entries_per_s']:.0f} entries/s "
           f"through ingest_packed (median {median(step_s):.3f} s/batch: "
           f"{parts}); insert {insert['calls']} calls, one step's "
@@ -1235,6 +1299,7 @@ def sink_run(device, name: str, chunks: int, seed: int) -> dict:
                   "h2d_enqueue": p50("ct-fetch.h2dSubmit"),
                   "complete": p50("ct-fetch.completeBatch")},
         "metrics": dict(agg.metrics),
+        "_truth": (stream, seen),
     }
     print(f"phase 8 sink {name}: {n_total} entries as {SINK_PAGE}-entry "
           f"pages, {out['unique_serials']} unique, drain == oracle, table "
@@ -1296,6 +1361,8 @@ def checkpoints(device, staged_model, staged_drain, seed: int) -> dict:
             check(r.drain() == staged_drain,
                   f"{mode} loaded on {dev}: the drain differs from the sink's")
             out["loads"][f"{mode}@{dev}"] = load_s
+            if mode == "ck01" and dev == device:
+                out["_restored"] = r  # phase 11 serves it
             del r
     print(f"phase 9 (i): the staged sink's {agg.capacity}-slot table saved "
           + ", ".join(f"{m} {v['bytes']} B in {v['s']:.2f} s"
@@ -1369,7 +1436,10 @@ def checkpoints(device, staged_model, staged_drain, seed: int) -> dict:
 FETCH_CHUNK = SINK_BATCH  # entries the log server makes a stream call
 FETCH_ENTRIES = 1 << 21  # 2,097,152 entries in the served log
 FETCH_TABLE_BITS = 20  # 1,572,864 slots: each run over the log grows once
-RESUME_ENTRIES = (1 << 17, 1 << 18)  # (d): the log at the first run, grown
+# (d): the log at the first run, grown. Cut from (2^17, 2^18) so the
+# script, phases 5b and 11 included, stays near half its time limit: the
+# PEM tree's file writes are most of a (d) run.
+RESUME_ENTRIES = (1 << 16, 1 << 17)
 # The directives of each run over the whole log, beside the common ones.
 FETCH_RUNS = {
     "a": {},
@@ -1381,10 +1451,12 @@ FETCH_RUNS = {
 def serve_logs(seed: int, conn) -> None:
     """The log server, in a process of its own (so its HTTP and JSON work
     does not share ct-fetch's interpreter): phase 8's stream as two logs
-    on 127.0.0.1 — ``full``, FETCH_ENTRIES entries, and ``grow``, its
-    first RESUME_ENTRIES[0] entries — each entry made by ``sink_entries``
-    in calls of FETCH_CHUNK lanes, so ``fetch_oracle`` regenerates the
-    truth from the same seed. Sends the two URLs on ``conn``, then
+    on 127.0.0.1 — ``full``, FETCH_ENTRIES entries, and ``grow`` and
+    ``part``, its first RESUME_ENTRIES[0] and SERVE_FETCH_ENTRIES entries —
+    each entry made by
+    ``sink_entries`` in calls of FETCH_CHUNK lanes, so ``fetch_oracle``
+    regenerates the truth from the same seed. Sends the three URLs on
+    ``conn``, then
     answers "grow" (``grow`` takes RESUME_ENTRIES[1] entries), "starts"
     (the ``start`` of each get-entries request ``grow`` has answered
     since the last ask) and "stop"."""
@@ -1395,14 +1467,18 @@ def serve_logs(seed: int, conn) -> None:
     extra = wire_extra_data(stream)
     full = FakeLog(url="https://ct.smoke.example/full")
     grow = FakeLog(url="https://ct.smoke.example/grow")
+    part = FakeLog(url="https://ct.smoke.example/part")
     for _ in range(FETCH_ENTRIES // FETCH_CHUNK):
         lis, eds, _, _ = sink_entries(stream, extra, FETCH_CHUNK, SINK_REPLAY)
         for li, ed in zip(lis, eds):
             full.add_raw(li, ed)
     for e in full.entries[:RESUME_ENTRIES[0]]:
         grow.add_raw(e["leaf_input"], e["extra_data"])
-    with LogServer(full) as s_full, LogServer(grow) as s_grow:
-        conn.send((s_full.url, s_grow.url))
+    for e in full.entries[:SERVE_FETCH_ENTRIES]:
+        part.add_raw(e["leaf_input"], e["extra_data"])
+    with LogServer(full) as s_full, LogServer(grow) as s_grow, \
+            LogServer(part) as s_part:
+        conn.send((s_full.url, s_grow.url, s_part.url))
         while True:
             msg = conn.recv()
             if msg == "grow":
@@ -1431,8 +1507,8 @@ class LogProcess:
         self.proc.start()
         self.urls = None
 
-    def wait_ready(self) -> tuple[str, str]:
-        """The two logs' URLs, once the server has made them."""
+    def wait_ready(self) -> tuple[str, str, str]:
+        """The three logs' URLs, once the server has made them."""
         if self.urls is None:
             check(self._conn.poll(900), "the log server never came up")
             self.urls = self._conn.recv()
@@ -1509,12 +1585,14 @@ def fetch_run(device, label: str, ini: str) -> dict:
         return sink, model
 
     ct_fetch.build_sink = spy
+    inserts = InsertCount()
     reset_counts()
     t0 = time.perf_counter()
     try:
         rc = ct_fetch.main(["-config", ini, "-nobars"], device=device)
     finally:
         ct_fetch.build_sink = orig
+        insert_calls = inserts.close()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -1544,6 +1622,7 @@ def fetch_run(device, label: str, ini: str) -> dict:
     return {
         "label": label, "wall_s": wall, "entries": entries,
         "entries_per_s": entries / wall, "launches": launches,
+        "insert_calls": insert_calls,
         "p50_s": {k: p50(f"ct-fetch.{k}") for k in (
             "decodeBatch", "storeCertificate", "completeBatch")},
         "get_entries_p50_s": next((v["p50"] for k, v in samples.items()
@@ -1645,9 +1724,9 @@ def fetch_phase(device, logs: LogProcess, seed: int) -> dict:
 
     from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
 
-    full_url, grow_url = logs.wait_ready()
+    full_url, grow_url, _part_url = logs.wait_ready()
     stream, seen = fetch_oracle(seed, (RESUME_ENTRIES[0], RESUME_ENTRIES[1],
-                                       FETCH_ENTRIES))
+                                       SERVE_FETCH_ENTRIES, FETCH_ENTRIES))
     d = os.path.join(HERE, "build", "smoke_fetch")
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
@@ -1684,7 +1763,8 @@ def fetch_phase(device, logs: LogProcess, seed: int) -> dict:
               + (", reports -v 1/-v 2 == oracle" if name == "a" else "")
               + f"; table {run['capacity_start']} -> {run['capacity_end']} "
               f"slots; launches {run['launches']['sha256_fp']} K1, "
-              f"{run['launches']['der_walk']} K3; p50 s: " + ", ".join(
+              f"{run['launches']['der_walk']} K3, {run['insert_calls']} "
+              f"bucket inserts (K2); p50 s: " + ", ".join(
                   f"{k} {v:.4f}" for k, v in run["p50_s"].items()
                   if v is not None)
               + f", a get-entries page {run['get_entries_p50_s']:.4f}"
@@ -1749,11 +1829,524 @@ def fetch_phase(device, logs: LogProcess, seed: int) -> dict:
     del one_model
     out["d"] = {"runs": d_runs, "one": run, "pems": n_pems,
                 "pem_check_s": pem_check_s}
+    out["_oracle"] = (stream, seen[SERVE_FETCH_ENTRIES])  # phase 11 (iii)
     print(f"phase 10 (d): resumed drain == one run over {RESUME_ENTRIES[1]} "
           f"entries == oracle; {n_pems} PEM files, one per first-seen "
           f"serial, each decoding to its leaf (checked in "
           f"{pem_check_s:.1f} s)", flush=True)
     shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+# -- phase 5b: the open-addressing table on the card ---------------------
+
+OPEN_BATCHES = 2  # walker-main's first two batches: the open table grows
+
+
+def open_layout(device, seed: int, bucket_drain) -> dict:
+    """Phase 5b: with ``CTMR_TABLE=open``, walker-main's first
+    OPEN_BATCHES batches from ``tableBits`` 21 (2,097,152 slots of 20 B,
+    growing once) through the walker lane, then the pre-parsed lane;
+    each drain held to the oracle and to phase 5's bucket drain over the
+    same batches. The walker lane's open table is then saved as ck01 on
+    the card and loaded into a CPU aggregator, to the same drain and
+    ``ckpt_state_digest``. Keeps that model and its truth for phase 11
+    (``_model``, ``_truth``)."""
+    import numpy as np
+    import torch
+
+    from ct_mapreduce_tpu_torch.agg.aggregator import (
+        TorchAggregator, ckpt_state_digest)
+    from ct_mapreduce_tpu_torch.ops import hashtable
+
+    prev = os.environ.get("CTMR_TABLE")
+    os.environ["CTMR_TABLE"] = "open"
+    try:
+        lanes = {}
+        for preparsed in (False, True):
+            out = main_path(device, Stream(seed, cn_filter=True),
+                            OPEN_BATCHES, BATCH_LOG2, TABLE_BITS, 0.5,
+                            preparsed, keep=not preparsed)
+            check(out["layout"] == "open",
+                  f"{out['lane']}: CTMR_TABLE=open built another layout")
+            check(out.pop("snapshot") == bucket_drain,
+                  f"{out['lane']}: the drain differs from phase 5's bucket "
+                  "drain over the same batches")
+            lanes[out["lane"]] = out
+            torch.cuda.empty_cache()
+    finally:
+        if prev is None:
+            os.environ.pop("CTMR_TABLE", None)
+        else:
+            os.environ["CTMR_TABLE"] = prev
+    walker = lanes["walker-open"]
+    agg = walker["_model"].aggregator
+    check(isinstance(agg.table, hashtable.TableState)
+          and agg.table.rows.is_cuda, "the open table is not on the card")
+    path = os.path.join(_ckpt_dir(), "open.npz")
+    agg.configure_checkpointing(mode="ck01")
+    t0 = time.perf_counter()
+    agg.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    with np.load(path, allow_pickle=True) as z:
+        check(str(z["layout"]) == "open"
+              and z["keys"].shape[0] == agg.capacity,
+              "the open table's checkpoint is not an open-layout ck01")
+    t0 = time.perf_counter()
+    r = TorchAggregator(capacity=1 << 10, device="cpu")
+    r.load_checkpoint(path)
+    load_s = time.perf_counter() - t0
+    check(isinstance(r.table, hashtable.TableState),
+          "the open ck01 loaded into another layout")
+    check(r.drain() == agg.drain(),
+          "the open ck01 loaded on the CPU drains differently")
+    check(ckpt_state_digest(r) == ckpt_state_digest(agg),
+          "the open ck01 loaded on the CPU has another digest")
+    ck = {"slots": agg.capacity, "bytes": os.path.getsize(path),
+          "save_s": save_s, "load_cpu_s": load_s}
+    os.unlink(path)
+    del r
+    print(f"phase 5b: open layout drains == oracle == phase 5's bucket "
+          f"drain over {OPEN_BATCHES} batches, in both lanes; the "
+          f"{ck['slots']}-slot open table saved as ck01 ({ck['bytes']} B) in "
+          f"{save_s:.2f} s, loaded on the CPU in {load_s:.2f} s to the same "
+          f"drain and digest", flush=True)
+    return {"lanes": lanes, "ckpt": ck}
+
+
+# -- phase 11: the serve plane on the card -------------------------------
+
+SERVE_QUERIES = 1 << 15  # queries a served table answers over HTTP
+SERVE_POST = 1 << 10  # queries a POST
+SERVE_CLIENTS = 4  # client threads posting at once
+SERVE_REPLICAS = 2
+SERVE_CACHE = 4096
+SERVE_LONG_SERIALS = 64  # never-logged serials past the fingerprint window
+FETCH_PROBES = 1 << 12  # (iii): the query set the client cycles through
+SERVE_FETCH_ENTRIES = 1 << 17  # (iii): the entries of the log it ingests
+
+
+def _swap_samples(since: int) -> tuple[int, dict]:
+    """The ``serve.replica_swap_s`` samples (a capture and pin of one
+    replica, under the aggregator's fold and table locks for the copy)
+    recorded after the first ``since``: (how many there are now, their
+    count, p50 and max in ms)."""
+    from ct_mapreduce_tpu_torch.telemetry import metrics
+
+    vals = list(metrics.get_sink().samples.get("serve.replica_swap_s", []))
+    new = sorted(vals[since:])
+    return len(vals), {"count": len(new),
+                       "p50_ms": median(new) * 1e3 if new else None,
+                       "max_ms": new[-1] * 1e3 if new else None}
+
+
+class RoundClock:
+    """Patches ``ct_fetch.LogSyncEngine`` while in use, so that the
+    seconds from ``__enter__`` to the end of ct-fetch's first sync round
+    (its engine's ``stop``) are ``round_s`` and ``done`` is set then; the
+    engines made are kept to stop a ``runForever`` run."""
+
+    def __enter__(self) -> "RoundClock":
+        import threading
+
+        from ct_mapreduce_tpu_torch.cmd import ct_fetch
+
+        self.engines, self.done, self.round_s = [], threading.Event(), None
+        self._base = base = ct_fetch.LogSyncEngine
+        clock = self
+
+        class Engine(base):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                clock.engines.append(self)
+
+            def stop(self):
+                super().stop()
+                if clock.round_s is None:
+                    clock.round_s = time.perf_counter() - clock.t0
+                clock.done.set()
+
+        ct_fetch.LogSyncEngine = Engine
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from ct_mapreduce_tpu_torch.cmd import ct_fetch
+
+        ct_fetch.LogSyncEngine = self._base
+
+
+def serve_queries(stream: Stream, truth, n: int, seed: int):
+    """``n`` /query objects over ``stream``'s templates with their
+    answers: half serials the stream holds (``truth`` by counter; all of
+    the long-CN issuer's host-lane serials held are among them), half
+    serials never logged under the same issuers (SERVE_LONG_SERIALS of
+    them longer than the fingerprint window). Returns (queries, want,
+    fingerprints of the lanes the device can answer, those lanes)."""
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch.core import packing
+    from ct_mapreduce_tpu_torch.core.types import ExpDate
+
+    rng = np.random.default_rng(seed)
+    held = np.nonzero(truth[: stream.template_of.shape[0]])[0]
+    long_t = len(stream.templates) - 1 if stream.cn_filter else -1
+    held_long = held[stream.template_of[held] == long_t]
+    n_known = n // 2
+    k_long = min(len(held_long), n_known // 16)
+    known = np.concatenate([
+        rng.choice(held_long, k_long, replace=False),
+        rng.choice(held, n_known - k_long,
+                   replace=len(held) < n_known - k_long)])
+    passing = np.nonzero(~stream.filtered)[0]
+    ghost = stream.next_counter + 1 + np.arange(n - n_known, dtype=np.int64)
+    ctr = np.concatenate([known, ghost])
+    tof = np.concatenate([stream.template_of[known],
+                          rng.choice(passing, n - n_known)])
+    ser, ln = stream.serial_bytes(tof, ctr)
+    exp_ids = [ExpDate.from_unix_hour(t["hour"]).id() for t in stream.truth]
+    serials = [ser[i, : ln[i]].tobytes() for i in range(n)]
+    for i in range(n - SERVE_LONG_SERIALS, n):
+        serials[i] = b"\x4d" + rng.bytes(49)  # 50 bytes, never logged
+    want = np.arange(n) < n_known
+    order = rng.permutation(n)
+    queries = [{"issuer": stream.truth[tof[i]]["issuer"],
+                "expDate": exp_ids[tof[i]], "serial": serials[i].hex()}
+               for i in order]
+    want = want[order]
+    fits = np.array([len(serials[i]) <= packing.MAX_SERIAL_BYTES
+                     for i in order])
+    return queries, want, order, tof[order], ctr[order], fits
+
+
+def _post_all(addr: str, queries: list, clients: int):
+    """``queries`` as POSTs of SERVE_POST from ``clients`` threads:
+    (known flags in order, seconds of each POST, wall seconds)."""
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch.serve.client import QueryClient
+
+    posts = [queries[i:i + SERVE_POST]
+             for i in range(0, len(queries), SERVE_POST)]
+
+    def post(i):
+        t0 = time.perf_counter()
+        resp = QueryClient(addr, timeout_s=120).query(posts[i])
+        return [r["known"] for r in resp["results"]], \
+            time.perf_counter() - t0, resp["epoch"]
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        res = list(pool.map(post, range(len(posts))))
+    wall = time.perf_counter() - t0
+    known = np.array([k for r in res for k in r[0]], bool)
+    return known, [r[1] for r in res], wall, [r[2] for r in res]
+
+
+def serve_table(device, label: str, agg, stream: Stream, truth,
+                seed: int) -> dict:
+    """Phase 11 (i)/(ii): a QueryServer on port 0 over ``agg`` on the
+    card (device views, SERVE_REPLICAS replicas, a SERVE_CACHE cache)
+    answers SERVE_QUERIES queries over HTTP, each against the host
+    oracle; then the pinned ``contains`` at 1,024 and at SERVE_QUERIES
+    keys (CUDA events, keys on the card) beside ``contains_np`` on the
+    host and its byte bound."""
+    import numpy as np
+    import torch
+
+    from ct_mapreduce_tpu_torch.core import packing
+    from ct_mapreduce_tpu_torch.ops import buckettable, hashtable, pipeline
+    from ct_mapreduce_tpu_torch.serve.server import QueryServer
+    from ct_mapreduce_tpu_torch.serve.snapshot import _place
+
+    queries, want, _order, tof, ctr, fits = serve_queries(
+        stream, truth, SERVE_QUERIES, seed)
+    swaps0, _ = _swap_samples(0)
+    srv = QueryServer(agg, 0, host="127.0.0.1", device=True,
+                      replicas=SERVE_REPLICAS, cache_size=SERVE_CACHE).start()
+    try:
+        t0 = time.perf_counter()
+        pool = srv.oracle.snapshots.warm()
+        warm_s = time.perf_counter() - t0
+        for v in pool._replicas:
+            check(v._device and v.pinned_device is not None
+                  and v.pinned_device.type == "cuda",
+                  f"serve {label}: a replica's rows are not pinned on cuda")
+        got, post_s, wall, _epochs = _post_all(
+            f"127.0.0.1:{srv.port}", queries, SERVE_CLIENTS)
+        check(np.array_equal(got, want),
+              f"serve {label}: {int((got != want).sum())} answers differ "
+              "from the host oracle")
+        v = pool._replicas[0]
+        layout = v.layout
+        # The device-answerable lanes' fingerprints, as lookup makes them.
+        idx = np.array([agg.registry.index_of_issuer_id(
+            stream.truth[t]["issuer"]) for t in tof], np.int64)
+        eh = np.array([stream.truth[t]["hour"] for t in tof], np.int64)
+        ser, ln = stream.serial_bytes(tof[fits], ctr[fits])
+        fps = packing.fingerprints_np(idx[fits], eh[fits], ser, ln)
+        rows = v._dev_rows
+        zero = torch.zeros((), dtype=torch.int64, device=rows.device)
+        state = (buckettable.BucketTable(rows, zero) if layout == "bucket"
+                 else hashtable.TableState(rows, zero))
+        timing = {}
+        for n in (1 << 10, fps.shape[0]):
+            keys = _place(fps[:n], rows.device)
+            dev = pipeline.table_contains(state, keys, max_probes=v.max_probes)
+            host = v._contains_host(fps[:n])
+            check(np.array_equal(dev.cpu().numpy(), host),
+                  f"serve {label}: device contains differs from contains_np "
+                  f"at {n} keys")
+            ms = cuda_times(lambda: pipeline.table_contains(
+                state, keys, max_probes=v.max_probes), TIMED_REPS)
+            host_ms = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                v._contains_host(fps[:n])
+                host_ms.append((time.perf_counter() - t1) * 1e3)
+            if layout == "bucket":
+                home = buckettable._home_bucket(buckettable._desentinel(keys),
+                                                state.n_buckets)
+                row_bytes = buckettable.ROW_WORDS * 4
+            else:
+                home = hashtable._home_slot(hashtable._desentinel(keys),
+                                            state.capacity)
+                row_bytes = hashtable.ROW_WORDS * 4
+            moved = int(torch.unique(home).numel()) * row_bytes + n * (16 + 1)
+            timing[n] = {"device_ms": median(ms), "device_ms_min": min(ms),
+                         "host_ms": median(host_ms),
+                         "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                         "bound_by": "bytes"}
+        stats = srv.oracle.stats()
+    finally:
+        srv.stop()
+    _, swaps = _swap_samples(swaps0)
+    post_sorted = sorted(post_s)
+    out = {"label": label, "layout": layout, "slots": agg.capacity,
+           "queries": SERVE_QUERIES, "posts": len(post_s),
+           "clients": SERVE_CLIENTS, "replicas": SERVE_REPLICAS,
+           "cache": SERVE_CACHE, "warm_s": warm_s, "wall_s": wall,
+           "queries_per_s": SERVE_QUERIES / wall,
+           "post_p50_ms": median(post_s) * 1e3,
+           "post_p99_ms": post_sorted[int(0.99 * (len(post_sorted) - 1))] * 1e3,
+           "known": int(want.sum()), "host_lane_queries": int(
+               ((tof == len(stream.templates) - 1) & want).sum()),
+           "contains": {str(k): t for k, t in timing.items()},
+           "cache_hits": stats.get("cache_hits"),
+           "replica_device": stats["replica_device"], "replica_swaps": swaps}
+    t1, tn = timing[1 << 10], timing[fps.shape[0]]
+    print(f"phase 11 ({label}): {SERVE_QUERIES} queries over HTTP to a "
+          f"{out['slots']}-slot {layout} table in {len(post_s)} POSTs of "
+          f"{SERVE_POST} from {SERVE_CLIENTS} clients, every answer == the "
+          f"host oracle; {out['queries_per_s']:.0f} queries/s, p50 "
+          f"{out['post_p50_ms']:.1f} ms, p99 {out['post_p99_ms']:.1f} ms a "
+          f"POST; {SERVE_REPLICAS} replicas pinned on cuda; contains on the "
+          f"card {t1['device_ms']:.3f} ms / 1024 keys, "
+          f"{tn['device_ms']:.3f} ms / {fps.shape[0]} (bound "
+          f"{tn['bound_ms']:.4f} ms), contains_np {t1['host_ms']:.3f} / "
+          f"{tn['host_ms']:.2f} ms; {swaps['count']} replica swaps, p50 "
+          f"{swaps['p50_ms']:.2f} ms, max {swaps['max_ms']:.2f} ms", flush=True)
+    return out
+
+
+def serve_fetch(device, part_url: str, stream: Stream, truth,
+                seed: int) -> dict:
+    """Phase 11 (iii): ct-fetch with ``queryPort`` (``runForever``, so
+    the plane outlives the first round) over the SERVE_FETCH_ENTRIES-entry
+    log, while this thread cycles FETCH_PROBES queries through /query:
+    no never-logged serial may ever answer known, and a serial answered
+    known at some epoch stays known at every later epoch. After the
+    round, ``ct-query-torch`` and ``ct-getcert-torch -queryAddr`` (as
+    processes) run against the plane; the getcert PEM equals the log's
+    entry fetched directly. Then every logged serial of the set must
+    answer known, and the run is stopped. First, the same ingest without
+    ``queryPort``: the two rounds' seconds are what the plane's replica
+    swaps and queries cost ingest."""
+    import io
+    import socket
+    import threading
+
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch.cmd import ct_fetch, ct_getcert
+    from ct_mapreduce_tpu_torch.serve.client import QueryClient
+    from ct_mapreduce_tpu_torch.telemetry import metrics
+
+    d = os.path.join(HERE, "build", "smoke_serve")
+    os.makedirs(d, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ini = _fetch_ini(os.path.join(d, "serve.ini"), part_url,
+                     os.path.join(d, "serve.npz"), stream, {
+                         "queryPort": port, "serveReplicas": SERVE_REPLICAS,
+                         "serveCacheSize": -1, "runForever": "true",
+                         "pollingDelayMean": "1h"})
+    queries, want, _o, _t, _c, _f = serve_queries(stream, truth, FETCH_PROBES,
+                                                  seed)
+    plain = _fetch_ini(os.path.join(d, "plain.ini"), part_url,
+                       os.path.join(d, "plain.npz"), stream, {})
+    metrics.get_sink().reset()
+    with RoundClock() as clock:
+        plain_run = fetch_run(device, "serve-plain", plain)
+    plain_run.pop("model")
+    check(plain_run["entries"] == SERVE_FETCH_ENTRIES,
+          f"serve (iii): the run without queryPort stored "
+          f"{plain_run['entries']}")
+    plain_round_s = clock.round_s
+    result = {}
+
+    def run():
+        try:
+            result["rc"] = ct_fetch.main(["-config", ini, "-nobars"],
+                                         device=device)
+        except BaseException as err:  # reported by the main thread
+            result["err"] = err
+
+    metrics.get_sink().reset()
+    with RoundClock() as clock:
+        engines, round_done = clock.engines, clock.done
+        reset_counts()
+        t0 = time.perf_counter()
+        fetch = threading.Thread(target=run, name="smoke-serve-fetch")
+        fetch.start()
+        addr = f"127.0.0.1:{port}"
+        client = QueryClient(addr, timeout_s=60)
+        answers = [[] for _ in queries]  # (epoch, known) per query
+
+        def ask(lo: int) -> np.ndarray:
+            part = queries[lo:lo + SERVE_POST]
+            resp = client.query(part)
+            got = np.array([r["known"] for r in resp["results"]], bool)
+            for j, k in enumerate(got):
+                answers[lo + j].append((resp["epoch"], bool(k)))
+            return got
+
+        try:
+            deadline = time.time() + 300
+            while True:
+                try:
+                    client.healthz()
+                    break
+                except OSError:
+                    check(fetch.is_alive() and time.time() < deadline,
+                          f"serve (iii): the query plane never came up "
+                          f"({result.get('err')!r})")
+                    time.sleep(0.02)
+            posts_during = 0
+            lo = 0
+            while not round_done.is_set():
+                check(fetch.is_alive(), f"serve (iii): ct-fetch ended early "
+                      f"({result.get('err')!r}, rc {result.get('rc')})")
+                ask(lo)
+                posts_during += 1
+                lo = (lo + SERVE_POST) % len(queries)
+            ingest_s = time.perf_counter() - t0
+            # The CLIs, as processes, against the live plane.
+            k = int(np.nonzero(want)[0][0])
+            q = queries[k]
+            ghost = queries[int(np.nonzero(~want)[0][0])]
+            clis = {}
+            for name, qq, rc_want in (("known", q, 0), ("ghost", ghost, 1)):
+                res = subprocess.run(
+                    [sys.executable, "-m", "ct_mapreduce_tpu_torch.cmd.ct_query",
+                     "-addr", addr, "-issuer", qq["issuer"], "-expDate",
+                     qq["expDate"], "-serial", qq["serial"]],
+                    cwd=HERE, capture_output=True, text=True, timeout=300)
+                check(res.returncode == rc_want,
+                      f"ct-query-torch ({name}): exit {res.returncode}, want "
+                      f"{rc_want}: {res.stderr[-400:]}")
+                clis[f"ct_query_{name}"] = json.loads(res.stdout)
+            index = SERVE_FETCH_ENTRIES // 3
+            res = subprocess.run(
+                [sys.executable, "-m", "ct_mapreduce_tpu_torch.cmd.ct_getcert",
+                 "-log", part_url, "-index", str(index), "-queryAddr", addr],
+                cwd=HERE, capture_output=True, text=True, timeout=300)
+            check(res.returncode == 0,
+                  f"ct-getcert-torch: exit {res.returncode}: {res.stderr[-400:]}")
+            direct = io.StringIO()
+            check(ct_getcert.main(["-log", part_url, "-index", str(index)],
+                                  out=direct) == 0, "direct getcert failed")
+            check(res.stdout == direct.getvalue() and res.stdout.startswith(
+                "-----BEGIN CERTIFICATE-----"),
+                "ct-getcert-torch through /getcert differs from the log's entry")
+            # Every logged serial of the set answers known once a view
+            # captured after the round serves.
+            deadline = time.time() + 60
+            while True:
+                got = np.concatenate([ask(lo)
+                                      for lo in range(0, len(queries), SERVE_POST)])
+                if np.array_equal(got, want):
+                    break
+                check(time.time() < deadline and not (got & ~want).any(),
+                      "serve (iii): the logged serials never all answered known")
+                time.sleep(0.2)
+            health = client.healthz()
+        finally:
+            for e in engines:
+                e.signal_stop()
+            fetch.join(timeout=600)
+    launches = read_counts()
+    _, swaps = _swap_samples(0)
+    check(not fetch.is_alive() and result.get("rc") == 0,
+          f"serve (iii): ct-fetch exit {result.get('rc')} "
+          f"({result.get('err')!r})")
+    check(launches["sha256_fp"] > 0 and launches["der_walk"] > 0,
+          "serve (iii): K1 or K3 never ran")
+    n_answers = sum(len(a) for a in answers)
+    for i, a in enumerate(answers):
+        known_at = [e for e, k in a if k]
+        if not want[i]:
+            check(not known_at, f"serve (iii): a never-logged serial "
+                  f"answered known at epoch {known_at[:1]}")
+        elif known_at:
+            first = min(known_at)
+            check(all(k for e, k in a if e >= first),
+                  f"serve (iii): a serial known at epoch {first} answered "
+                  "unknown at a later epoch")
+    check(all(health["replica_device"]) and health["replicas"]
+          == SERVE_REPLICAS, f"serve (iii): replicas not on the card: "
+          f"{health}")
+    check(health["device_fallback_total"] == 0,
+          "serve (iii): a replica fell back to the host")
+    out = {"entries": SERVE_FETCH_ENTRIES, "ingest_s": ingest_s,
+           "round_s": clock.round_s, "plain_round_s": plain_round_s,
+           "plain_entries_per_s": SERVE_FETCH_ENTRIES / plain_round_s,
+           "entries_per_s": SERVE_FETCH_ENTRIES / clock.round_s,
+           "replica_swaps": swaps, "plain_run": plain_run,
+           "posts_during_ingest": posts_during, "answers": n_answers,
+           "epochs": health["snapshot_epoch"], "launches": launches,
+           "ct_query": clis, "getcert_index": index}
+    print(f"phase 11 (iii): ct-fetch with queryPort over "
+          f"{SERVE_FETCH_ENTRIES} entries, a round of {clock.round_s:.2f} s "
+          f"({plain_round_s:.2f} s without queryPort) while "
+          f"{posts_during} POSTs of {SERVE_POST} queried it; "
+          f"{swaps['count']} replica swaps, p50 {swaps['p50_ms']:.2f} ms, max "
+          f"{swaps['max_ms']:.2f} ms; {n_answers} "
+          f"answers over {health['snapshot_epoch']} epochs: no ghost known, "
+          f"no known serial lost; ct-query-torch and ct-getcert-torch "
+          f"-queryAddr == the log's entry; launches "
+          f"{launches['sha256_fp']} K1, {launches['der_walk']} K3", flush=True)
+    return out
+
+
+def serve_phase(device, restored, staged_truth, open_model, open_truth,
+                part_url: str, fetch_truth, seed: int) -> dict:
+    """Phase 11: (i) phase 9's restored bucket table, (ii) phase 5b's
+    open table, (iii) ct-fetch with ``queryPort``; ``serve.device_fallback``
+    must stay 0 throughout."""
+    from ct_mapreduce_tpu_torch.telemetry import metrics
+
+    out = {"bucket": serve_table(device, "i", restored, *staged_truth, seed),
+           "open": serve_table(device, "ii", open_model.aggregator,
+                               *open_truth, seed + 1)}
+    fallbacks = metrics.get_sink().snapshot()["counters"].get(
+        "serve.device_fallback", 0)
+    check(fallbacks == 0, f"serve: {fallbacks} device fallbacks")
+    out["fetch"] = serve_fetch(device, part_url, *fetch_truth, seed + 2)
+    fallbacks = metrics.get_sink().snapshot()["counters"].get(
+        "serve.device_fallback", 0)
+    check(fallbacks == 0, f"serve (iii): {fallbacks} device fallbacks")
     return out
 
 
@@ -1866,13 +2459,15 @@ def profile_sink(device, name: str, seed: int, out_dir: str) -> dict:
 
 
 def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
-                 preparsed: dict, sinks: dict, fetch: dict) -> dict:
+                 preparsed: dict, sinks: dict, fetch: dict,
+                 extra_paths: dict) -> dict:
     """The ``{"kernels": [...]}`` record: every kernel of the port with
     its launches on each main path and this run's measurements."""
     from ct_mapreduce_tpu_torch.tools import mosaic_probe as mp
 
     paths = {"walker": walker["launches"], "preparsed": preparsed["launches"],
              "probe": probe["ladder_launches"]}
+    paths.update(extra_paths)
     paths.update({f"sink_{name}": sinks[name]["launches"]
                   for name in SINK_CONFIGS})
     paths.update({f"fetch_{name}": fetch[name]["launches"]
@@ -1960,35 +2555,59 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
 
     card = card_line()
     print(card, flush=True)
+    phase_s, t_lap = {}, [t_start]
+
+    def lap(name: str) -> None:
+        """Seconds of the phase that just ended, into ``phase_s``."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_lap[0]
+        t_lap[0] = now
+
     builds = build_all()
     print("phase 1: built " + ", ".join(
         f"{k[:-8]} in {v:.1f} s" for k, v in builds.items()), flush=True)
 
     sass = sass_report(args.sass) if args.sass else None
+    lap("1")
     k1 = kernel_check(device, 1 << BATCH_LOG2, args.seed, TIMED_REPS)
+    lap("2")
     k3 = walker_check(device, args.seed)
     torch.cuda.empty_cache()
+    lap("3")
     probe = probe_check(device, args.seed)
     torch.cuda.empty_cache()
+    lap("4")
     lanes = {}
     for preparsed in (False, True):  # the same batches through each lane
         out = main_path(device, Stream(args.seed, cn_filter=True),
-                        MAIN_BATCHES, BATCH_LOG2, TABLE_BITS, 0.5, preparsed)
+                        MAIN_BATCHES, BATCH_LOG2, TABLE_BITS, 0.5, preparsed,
+                        drain_after=OPEN_BATCHES)
         lanes[out["lane"]] = out
         torch.cuda.empty_cache()
     check(lanes["walker"].pop("snapshot") == lanes["preparsed"].pop("snapshot"),
           "the walker lane's drain differs from the pre-parsed lane's")
+    bucket_at = lanes["walker"].pop("drain_at")
+    check(lanes["preparsed"].pop("drain_at") == bucket_at,
+          f"the lanes drain differently after {OPEN_BATCHES} batches")
     print("phase 6: the walker and pre-parsed lanes drain the same", flush=True)
+    lap("5-6")
+    opened = open_layout(device, args.seed, bucket_at)
+    open_model = opened["lanes"]["walker-open"].pop("_model")
+    open_truth = opened["lanes"]["walker-open"].pop("_truth")
+    torch.cuda.empty_cache()
+    lap("5b")
     big = deployment_state(device, Stream(args.seed), BIG_TABLE_BITS,
                            BATCH_LOG2, 0.5, args.seed)
     torch.cuda.empty_cache()
+    lap("7")
     sinks, drains = {}, {}
     for name in SINK_CONFIGS:
         out, model, drains[name] = sink_run(device, name, SINK_CHUNKS,
                                             args.seed)
         sinks[name] = out
+        truth = out.pop("_truth")
         if name == "staged":
-            staged_model = model
+            staged_model, staged_truth = model, truth
         else:
             del model
         torch.cuda.empty_cache()
@@ -2001,12 +2620,23 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
           "chunk's rows to the card: " + ", ".join(
               f"{k} {v:.3f}" for k, v in sinks["h2d_chunk"].items()
               if k != "bytes"), flush=True)
+    lap("8")
     ckpts = checkpoints(device, staged_model, drains["staged"], args.seed)
+    restored = ckpts.pop("_restored")
     del staged_model
     torch.cuda.empty_cache()
+    lap("9")
     fetch = fetch_phase(device, logs, args.seed)
+    fetch_truth = fetch.pop("_oracle")
+    torch.cuda.empty_cache()
+    lap("10")
+    serve = serve_phase(device, restored, staged_truth, open_model,
+                        open_truth, logs.wait_ready()[2], fetch_truth,
+                        args.seed)
+    del restored, open_model
     logs.stop()
     torch.cuda.empty_cache()
+    lap("11")
     prof = None
     if args.profile:
         torch.cuda.empty_cache()
@@ -2018,16 +2648,25 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
             prof.append(profile_sink(device, name, args.seed, args.profile))
     details = {"card": card, "builds": builds, "fingerprint": k1,
                "walker_kernel": k3, "probe": probe, "lanes": lanes,
-               "big_table": big, "sinks": sinks, "checkpoints": ckpts,
-               "fetch": fetch, "profile": prof, "sass": sass,
+               "open_layout": opened, "big_table": big, "sinks": sinks,
+               "checkpoints": ckpts, "fetch": fetch, "serve": serve,
+               "profile": prof, "sass": sass, "phase_s": phase_s,
                "wall_s": time.perf_counter() - t_start}
+    print("phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items())
+        + f"; the script {details['wall_s']:.1f} s", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(details, f, indent=1)
     print(json.dumps(details), flush=True)
+    extra_paths = {"walker_open": opened["lanes"]["walker-open"]["launches"],
+                   "preparsed_open":
+                       opened["lanes"]["preparsed-open"]["launches"],
+                   "serve_fetch": serve["fetch"]["launches"]}
     print(json.dumps(kernels_line(k1, k3, probe, lanes["walker"],
-                                  lanes["preparsed"], sinks, fetch)),
+                                  lanes["preparsed"], sinks, fetch,
+                                  extra_paths)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,10 @@
 the reference (serial dedup sets, per-issuer CRL/DN sets, reference
 storage/knowncertificates.go, storage/issuermetadata.go) with:
 
-- a device-resident bucket dedup table (:mod:`..ops.buckettable`)
-  driven by the walker step or the pre-parsed step
-  (:mod:`..ops.pipeline`),
+- a device-resident dedup table, in the bucket layout
+  (:mod:`..ops.buckettable`, the default) or the open-addressing one
+  (:mod:`..ops.hashtable`, ``CTMR_TABLE=open``), driven by the walker
+  step or the pre-parsed step (:mod:`..ops.pipeline`),
 - a host-side issuer registry mapping SHA-256(SPKI) identities to the
   dense indices the device ops use,
 - host-side CRL/DN string sets fed by the walker's (or the sidecar's)
@@ -33,9 +34,8 @@ fold, a grow, the segment budget), after which the next save writes a
 full base. Table rows leave the card in one copy under ``_table_lock``.
 
 Left out so far: filter capture (a checkpoint that carries one raises,
-ROADMAP item 10), the open-addressing layout (item 8), signature
-verification (item 11; its per-issuer vectors ride the checkpoints as
-zeros).
+ROADMAP item 10) and signature verification (item 11; its per-issuer
+vectors ride the checkpoints as zeros).
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ from ct_mapreduce_tpu_torch.core import der as hostder
 from ct_mapreduce_tpu_torch.core import packing
 from ct_mapreduce_tpu_torch.core.types import ExpDate, Issuer
 from ct_mapreduce_tpu_torch.device import resolve_device
-from ct_mapreduce_tpu_torch.ops import buckettable, pipeline
+from ct_mapreduce_tpu_torch.ops import buckettable, hashtable, pipeline
 from ct_mapreduce_tpu_torch.telemetry import trace
 from ct_mapreduce_tpu_torch.telemetry.metrics import incr_counter, set_gauge
 
@@ -389,11 +389,10 @@ class TorchAggregator:
         self._table_lock = threading.RLock()
         # Serializes whole checkpoint writes.
         self._save_lock = threading.Lock()
-        # The ceiling rounds DOWN to a capacity the bucket layout can
-        # build (24·2^k slots), so maybe_grow's at-ceiling guard fires
-        # instead of rebuilding at the same size on every batch.
-        self.max_capacity = (buckettable.bucket_count(
-            max_capacity, max_capacity) * buckettable.SLOTS)
+        # The ceiling rounds DOWN to a capacity the active layout can
+        # build, so maybe_grow's at-ceiling guard fires instead of
+        # rebuilding at the same size on every batch.
+        self.max_capacity = self._layout_capacity_floor(max_capacity)
         self.table = self._make_table(capacity)
         # Bucket tables round capacity up to whole buckets; load-factor
         # arithmetic uses the real slot count.
@@ -462,11 +461,27 @@ class TorchAggregator:
         self._ckpt_shadow: Optional[dict] = None
 
     # -- table state -----------------------------------------------------
-    def _make_table(self, capacity: int) -> buckettable.BucketTable:
-        return buckettable.make_table(
-            capacity, max_capacity=self.max_capacity, device=self.device)
+    @staticmethod
+    def _layout_capacity_floor(cap: int) -> int:
+        """Largest capacity <= ``cap`` the active layout can build:
+        24·2^k slots for bucket tables, a power of two for open ones
+        (growth doubles from either, so the floored ceiling stays
+        reachable)."""
+        if pipeline.table_layout() == "bucket":
+            return buckettable.bucket_count(cap, cap) * buckettable.SLOTS
+        if cap & (cap - 1):
+            cap = 1 << (cap.bit_length() - 1)
+        return cap
+
+    def _make_table(self, capacity: int):
+        if pipeline.table_layout() == "bucket":
+            return buckettable.make_table(
+                capacity, max_capacity=self.max_capacity, device=self.device)
+        return hashtable.make_table(capacity, device=self.device)
 
     def _drain_table(self) -> tuple[np.ndarray, np.ndarray]:
+        if isinstance(self.table, hashtable.TableState):
+            return hashtable.drain_np(self.table)
         return buckettable.drain_np(self.table)
 
     def _device_contains(self, fps: np.ndarray) -> np.ndarray:
@@ -477,7 +492,7 @@ class TorchAggregator:
             np.ascontiguousarray(fps, np.uint32).view(np.int32)).to(
                 self.device)
         with self._table_lock:
-            return buckettable.contains(
+            return pipeline.table_contains(
                 self.table, keys, max_probes=self.max_probes).cpu().numpy()
 
     # -- load-factor policy ---------------------------------------------
@@ -1690,13 +1705,16 @@ class TorchAggregator:
         host-owned array (on the CPU ``.numpy()`` is a view of the live
         rows, which the next step changes)."""
         with self._table_lock:
+            layout = ("open" if isinstance(self.table, hashtable.TableState)
+                      else "bucket")
             rows = np.array(self.table.rows.cpu().numpy().view(np.uint32),
                             copy=True)
             count = np.asarray(np.int32(int(self.table.count)))
-        slots = rows[:, : buckettable.SLOTS * 5].reshape(-1, 5)
+        slots = (rows if layout == "open"
+                 else rows[:, : buckettable.SLOTS * 5].reshape(-1, 5))
         np.savez_compressed(
             fh,
-            layout=np.array("bucket"),
+            layout=np.array(layout),
             n_shards=np.int64(1),
             keys=slots[:, :4],
             meta=slots[:, 4],
@@ -1721,11 +1739,15 @@ class TorchAggregator:
         )
 
     def _restore_table(self, keys: np.ndarray, meta: np.ndarray,
-                       count: np.ndarray, ckpt_shards: int) -> None:
+                       count: np.ndarray, layout: str,
+                       ckpt_shards: int) -> None:
         """Rebuild the table on this aggregator's device from checkpoint
-        (keys, meta) slots. A snapshot of a sharded writer addresses its
-        slots by shard, so its rows re-hash through the reinsert path
-        instead of being copied by position."""
+        (keys, meta) slots, in the snapshot's ``layout`` whatever
+        ``CTMR_TABLE`` says (slot positions mean something only in the
+        structure that wrote them). A snapshot of a sharded writer
+        addresses its slots by shard, so its rows re-hash through the
+        reinsert path, into the active layout, instead of being copied
+        by position."""
         with self._table_lock:
             if ckpt_shards != 1:
                 occ = keys.any(axis=-1)
@@ -1739,7 +1761,15 @@ class TorchAggregator:
                         f"increase tableBits (capacity {self.capacity})")
                 self._table_fill = int(occ.sum())
                 return
+            total = torch.tensor(int(np.asarray(count).sum()),
+                                 dtype=torch.int64, device=self.device)
             slots = buckettable.fuse_rows_np(keys, meta)
+            if layout != "bucket":
+                self.table = hashtable.TableState(
+                    rows=torch.from_numpy(slots.view(np.int32)).to(self.device),
+                    count=total)
+                self.capacity = int(keys.shape[0])
+                return
             nb = slots.shape[0] // buckettable.SLOTS
             rows = np.zeros((nb, buckettable.ROW_WORDS), np.uint32)
             rows[:, : buckettable.SLOTS * 5] = slots.reshape(nb, -1)
@@ -1748,8 +1778,7 @@ class TorchAggregator:
             buckettable.fill_counts_np(rows)
             self.table = buckettable.BucketTable(
                 rows=torch.from_numpy(rows.view(np.int32)).to(self.device),
-                count=torch.tensor(int(np.asarray(count).sum()),
-                                   dtype=torch.int64, device=self.device))
+                count=total)
             self.capacity = nb * buckettable.SLOTS
 
     def load_checkpoint(self, path: str) -> None:
@@ -1769,14 +1798,11 @@ class TorchAggregator:
 
     def _load_base(self, path: str) -> None:
         with np.load(path, allow_pickle=True) as z:
-            # Checked before any state changes: formats this slice does
-            # not port are refused, never half-loaded.
+            # `layout` is absent in snapshots older than the bucket table
+            # (open), `n_shards` in those older than the sharded writer
+            # (1). Checked before any state changes: formats the port
+            # does not read yet are refused, never half-loaded.
             layout = str(z["layout"]) if "layout" in z else "open"
-            if layout != "bucket":
-                raise ValueError(
-                    f"checkpoint {path} holds an {layout!r}-layout table; "
-                    "the open-addressing table is not ported yet "
-                    "(ROADMAP.md queue 1 item 8)")
             if "filter_keys" in z:
                 raise ValueError(
                     f"checkpoint {path} carries a filter capture; filter "
@@ -1784,7 +1810,7 @@ class TorchAggregator:
             ckpt_shards = int(z["n_shards"]) if "n_shards" in z else 1
             count = np.asarray(z["count"])
             self._restore_table(np.asarray(z["keys"]), np.asarray(z["meta"]),
-                                count, ckpt_shards)
+                                count, layout, ckpt_shards)
             self._device_written = bool(count.sum() > 0)
             self._table_fill = int(count.sum())
             self._inflight_lanes = 0

@@ -12,11 +12,14 @@ Honest limit (as in the JAX package): a certificate cross-logged into
 two logs owned by different workers counts once per owning worker.
 
 Where this copy departs from the JAX module: each checkpoint is read
-through ``TorchAggregator(..., device="cpu")``, named explicitly,
-instead of the JAX package's ``HostSnapshotAggregator``. A report needs
-no card, so the CPU here is the reader's chosen device, not a fallback.
-The merged filter capture of the JAX module is not copied (filter
-capture is ROADMAP item 10; a checkpoint carrying one is refused).
+through :class:`SnapshotReader`, a ``TorchAggregator`` on the CPU,
+named explicitly, instead of the JAX package's
+``HostSnapshotAggregator``. A report needs no card, so the CPU here is
+the reader's chosen device, not a fallback. The reader takes the
+snapshots that class takes (either layout, ck02 chains on a bucket
+table) and refuses the two it refuses. The merged filter capture of
+the JAX module is not copied (filter capture is ROADMAP item 10; a
+checkpoint carrying one is refused).
 """
 
 from __future__ import annotations
@@ -24,11 +27,39 @@ from __future__ import annotations
 import glob
 import os
 
+import numpy as np
+
 from ct_mapreduce_tpu_torch.agg.aggregator import (
     AggregateSnapshot,
     IssuerRegistry,
     TorchAggregator,
 )
+from ct_mapreduce_tpu_torch.ops import buckettable
+
+
+class SnapshotReader(TorchAggregator):
+    """A CPU aggregator that reads checkpoints for a report and refuses
+    what the JAX package's ``HostSnapshotAggregator`` refuses: re-hashing
+    a topology-mismatched snapshot into an open-layout table, and
+    replaying a ck02 chain onto an open-layout base."""
+
+    def __init__(self) -> None:
+        super().__init__(capacity=1 << 10, device="cpu")
+
+    def _bulk_reinsert(self, keys: np.ndarray, meta: np.ndarray) -> int:
+        if not isinstance(self.table, buckettable.BucketTable):
+            raise RuntimeError(
+                "host-only restore of a topology-mismatched open-layout "
+                "snapshot is not supported; restore through a device "
+                "aggregator (TorchAggregator) instead")
+        return super()._bulk_reinsert(keys, meta)
+
+    def _chain_insert(self, keys: np.ndarray, meta: np.ndarray) -> int:
+        if not isinstance(self.table, buckettable.BucketTable):
+            raise RuntimeError(
+                "host-only chain replay needs the bucket layout; "
+                "restore through TorchAggregator")
+        return super()._chain_insert(keys, meta)
 
 
 def expand_state_paths(spec: str) -> list[str]:
@@ -88,7 +119,7 @@ class MergedAggregate:
     def fold_checkpoint(self, path: str) -> None:
         """Load one worker's checkpoint on the CPU, drain it through the
         worker's own exact fold path, and union the results in."""
-        agg = TorchAggregator(capacity=1 << 10, device="cpu")
+        agg = SnapshotReader()
         agg.load_checkpoint(path)
         self._snapshots.append(agg.drain())
         self.worker_paths.append(path)

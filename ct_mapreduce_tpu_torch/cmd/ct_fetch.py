@@ -15,6 +15,11 @@ the database facade, as the reference does. ``profileDir`` writes a
 ``torch.profiler`` trace of the run (the JAX package writes a
 ``jax.profiler`` one).
 
+``queryPort`` starts the query plane (``serve/server.py``) over the
+live aggregator, on the aggregator's device: membership answers from
+pinned copies of the dedup table, ``/issuer``, ``/healthz`` and the
+``/getcert`` proxy, while the run ingests.
+
 Directives whose subsystem the port does not have yet raise a
 ``ValueError`` naming the ROADMAP item that brings it (see
 :func:`refuse_unported`); none is silently ignored. The lock-order
@@ -117,7 +122,6 @@ def refuse_unported(config: CTConfig) -> None:
         (bool(config.emit_filter
               or os.environ.get("CTMR_EMIT_FILTER", "0") == "1"),
          "emitFilter (filter emission)", "item 10"),
-        (config.query_port != 0, "queryPort (the query plane)", "item 9"),
         (config.verify_signatures
          or os.environ.get("CTMR_VERIFY", "0") == "1",
          "verifySignatures (the verify lane)", "item 11"),
@@ -133,6 +137,14 @@ def refuse_unported(config: CTConfig) -> None:
         if needed:
             raise ValueError(f"{what} is not ported yet "
                              f"(ROADMAP.md queue 1 {item})")
+
+
+def slo_breaches() -> list:
+    """The SLO rules' breach reasons, which the query plane's /healthz
+    reads. The rules and their directives are ROADMAP item 14;
+    :func:`refuse_unported` refuses those directives, so no rule is
+    set and nothing breaches."""
+    return []
 
 
 def _pop_device(argv: list[str]) -> tuple[list[str], str]:
@@ -243,6 +255,30 @@ def main(argv: list[str] | None = None, device=None) -> int:
             print(f"health endpoint disabled: {err}", file=sys.stderr)
             health = None
 
+    # Query plane: the batched membership-oracle JSON API over the live
+    # aggregator. Device backend only: the per-entry database path has
+    # no dedup table to serve.
+    query_server = None
+    if config.query_port and model is not None:
+        from ct_mapreduce_tpu_torch.serve.server import QueryServer
+
+        try:
+            query_server = QueryServer(
+                model.aggregator, config.query_port,
+                device=config.serve_device,
+                replicas=config.serve_replicas,
+                cache_size=config.serve_cache_size).start()
+            # A breach of the SLO rules flips /healthz to 503.
+            query_server.slo_check = slo_breaches
+            print(f"query endpoint: :{query_server.port}/query "
+                  f"+ /issuer + /getcert", file=sys.stderr)
+        except OSError as err:
+            print(f"query endpoint disabled: {err}", file=sys.stderr)
+            query_server = None
+    elif config.query_port:
+        print("queryPort ignored: the query plane needs backend = tpu",
+              file=sys.stderr)
+
     def handle_signal(signum, frame):
         print(f"\nsignal {signum}: stopping after current batches...",
               file=sys.stderr)
@@ -334,6 +370,8 @@ def main(argv: list[str] | None = None, device=None) -> int:
             printer.stop()
         if health:
             health.stop()
+        if query_server:
+            query_server.stop()
         if dumper:
             dumper.stop()
         if trace.enabled():

@@ -35,13 +35,12 @@ def _load_tpu_aggregate(config: CTConfig):
     import os
 
     from ct_mapreduce_tpu_torch.agg import merge
-    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
 
     paths = merge.expand_state_paths(config.agg_state_path)
     if not paths or any(not os.path.exists(p) for p in paths):
         return None
     if len(paths) == 1:
-        agg = TorchAggregator(capacity=1 << 10, device="cpu")
+        agg = merge.SnapshotReader()
         agg.load_checkpoint(paths[0])
         return agg
     return merge.load_checkpoints(paths)

@@ -215,3 +215,24 @@ def nonneg_int(v: Any) -> bool:
         return int(v) >= 0
     except (TypeError, ValueError):
         return False
+
+
+def nonzero_int(v: Any) -> bool:
+    """Knobs where negative values are meaningful (e.g. -1 disables a
+    cache): only exactly 0 means "unset"."""
+    try:
+        return int(v) != 0
+    except (TypeError, ValueError):
+        return False
+
+
+def parse_bool_lenient(raw: str) -> bool:
+    """The serve-plane convention: anything but an explicit false
+    spelling is true."""
+    return raw.strip().lower() not in ("0", "f", "false")
+
+
+def any_set(_v: Any) -> bool:
+    """env_is_set for bool knobs: a present, parseable env var always
+    decides (False included)."""
+    return True

@@ -29,12 +29,14 @@ array per envelope.
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import NamedTuple
 
 import torch
 
 from ct_mapreduce_tpu_torch.core import packing
-from ct_mapreduce_tpu_torch.ops import buckettable, der_kernel, sha256
+from ct_mapreduce_tpu_torch.ops import buckettable, der_kernel, hashtable, sha256
 
 N_PREPARSED_FLAG_CAP = 1024  # default compacted-overflow capacity
 
@@ -43,9 +45,42 @@ N_PREPARSED_FLAG_CAP = 1024  # default compacted-overflow capacity
 fingerprints = sha256.sha256_fingerprint64
 
 
-#: Insert-if-absent on the dedup table (the bucket layout is the only
-#: one the port has).
-table_insert = buckettable.insert
+def table_layout() -> str:
+    """Dedup-table layout: ``bucket`` (the default, ops/buckettable.py)
+    or ``open`` (slot-granular open addressing, ops/hashtable.py), from
+    ``CTMR_TABLE``. An unknown value warns and selects bucket."""
+    layout = os.environ.get("CTMR_TABLE", "bucket").strip().lower()
+    if layout not in ("bucket", "open"):
+        warnings.warn(
+            f"ignoring CTMR_TABLE={layout!r} (want bucket|open); "
+            "using bucket", stacklevel=2)
+        return "bucket"
+    return layout
+
+
+def make_table(capacity: int, layout: str | None = None, device=None):
+    """Fresh dedup table in the selected layout, on ``device`` (CUDA
+    unless given)."""
+    if (layout or table_layout()) == "bucket":
+        return buckettable.make_table(capacity, device=device)
+    return hashtable.make_table(capacity, device=device)
+
+
+def table_insert(table, keys, meta, valid, max_probes: int = 32):
+    """Insert-if-absent on either dedup-table layout, dispatched on the
+    state's type: ``BucketTable`` takes the bucket path,
+    ``hashtable.TableState`` the slot-granular probe path."""
+    if isinstance(table, hashtable.TableState):
+        return hashtable.insert(table, keys, meta, valid,
+                                max_probes=max_probes)
+    return buckettable.insert(table, keys, meta, valid, max_probes=max_probes)
+
+
+def table_contains(table, keys, max_probes: int = 32) -> torch.Tensor:
+    """Membership on either dedup-table layout: bool[B]."""
+    if isinstance(table, hashtable.TableState):
+        return hashtable.contains(table, keys, max_probes=max_probes)
+    return buckettable.contains(table, keys, max_probes=max_probes)
 
 
 def _meta_word(issuer_idx: torch.Tensor, hour_off: torch.Tensor) -> torch.Tensor:

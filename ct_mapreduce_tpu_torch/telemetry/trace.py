@@ -7,9 +7,15 @@ read. Instant events (``instant``) mark one-off moments such as a
 stage failure; the flight recorder reads the ring through
 ``snapshot_events``. The span names are the JAX package's (``ingest.decode``,
 ``ingest.h2d``, ``device.step``, ``device.fold``, ...), so one trace
-viewer reads either package's traces. Not copied: the JAX profiler
-annotations, the fleet trace context and the ``CTMR_TRACE`` switch at
-import time; call :func:`enable` instead.
+viewer reads either package's traces.
+
+Cross-process correlation, as in the JAX package: a request thread
+scopes a ``trace_id``/``parent_id`` pair with :class:`trace_context`
+(usually parsed from a W3C-style ``traceparent`` header that the query
+client mints with :func:`mint_traceparent`), and every span recorded on
+that thread meanwhile carries it. Not copied: the JAX profiler
+annotations, the fleet's process-wide attributes and the ``CTMR_TRACE``
+switch at import time; call :func:`enable` instead.
 """
 
 from __future__ import annotations
@@ -22,6 +28,82 @@ from collections import deque
 from typing import Optional
 
 DEFAULT_RING = 1 << 16
+
+# Per-thread trace context: (trace_id, parent_id) or absent.
+_ctx = threading.local()
+
+
+class trace_context:
+    """Context manager scoping a (trace_id, parent_id) pair to the
+    calling thread; restores the previous context on exit. A falsy
+    ``trace_id`` makes it a no-op (so callers can pass a parse result
+    straight through)."""
+
+    __slots__ = ("_ids", "_prev")
+
+    def __init__(self, trace_id: Optional[str],
+                 parent_id: Optional[str] = None):
+        self._ids = (trace_id, parent_id) if trace_id else None
+
+    def __enter__(self):
+        self._prev = getattr(_ctx, "ids", None)
+        if self._ids is not None:
+            _ctx.ids = self._ids
+        return self
+
+    def __exit__(self, *exc):
+        _ctx.ids = self._prev
+        return False
+
+
+def get_trace_context() -> Optional[tuple]:
+    """The calling thread's (trace_id, parent_id), or None."""
+    return getattr(_ctx, "ids", None)
+
+
+# Wire shape: "00-<32 hex trace_id>-<16 hex span_id>-01" (version and
+# sampled flag fixed; only the two ids are meaningful here).
+TRACEPARENT_HEADER = "traceparent"
+
+
+def mint_traceparent() -> tuple[str, str, str]:
+    """(header_value, trace_id, span_id) for a new client-side root."""
+    trace_id, span_id = os.urandom(16).hex(), os.urandom(8).hex()
+    return f"00-{trace_id}-{span_id}-01", trace_id, span_id
+
+
+def parse_traceparent(header: Optional[str]) -> Optional[tuple]:
+    """(trace_id, span_id) from a traceparent header, or None on any
+    malformation: propagation must never reject a request."""
+    if not header:
+        return None
+    parts = header.strip().split("-")
+    if len(parts) != 4:
+        return None
+    version, trace_id, span_id, _flags = parts
+    if len(version) != 2 or len(trace_id) != 32 or len(span_id) != 16:
+        return None
+    try:
+        int(version, 16), int(trace_id, 16), int(span_id, 16)
+    except ValueError:
+        return None
+    if trace_id == "0" * 32 or span_id == "0" * 16:
+        return None
+    return trace_id, span_id
+
+
+def _tagged_args(args) -> Optional[dict]:
+    """Span args merged with the calling thread's trace context
+    (span-local args win)."""
+    ids = getattr(_ctx, "ids", None)
+    if ids is None:
+        return dict(args) if args else None
+    merged = {"trace_id": ids[0]}
+    if ids[1]:
+        merged["parent_id"] = ids[1]
+    if args:
+        merged.update(args)
+    return merged
 
 
 class _NullSpan:
@@ -72,6 +154,11 @@ class SpanTracer:
         self._threads_lock = threading.Lock()
         self._thread_names: dict[int, str] = {}
 
+    def now_us(self) -> float:
+        """Current timestamp on the tracer's own clock (µs since
+        construction), for callers windowing :meth:`events`."""
+        return (time.perf_counter_ns() - self._t0_ns) / 1e3
+
     def _tid(self) -> int:
         tid = threading.get_ident()
         if tid not in self._thread_names:
@@ -87,8 +174,9 @@ class SpanTracer:
               "tid": self._tid()}
         if cat:
             ev["cat"] = cat
-        if args:
-            ev["args"] = dict(args)
+        tagged = _tagged_args(args)
+        if tagged:
+            ev["args"] = tagged
         self._events.append(ev)
 
     def span(self, name: str, cat: str = "", **args) -> _Span:
@@ -100,8 +188,9 @@ class SpanTracer:
               "pid": self._pid, "tid": self._tid()}
         if cat:
             ev["cat"] = cat
-        if args:
-            ev["args"] = dict(args)
+        tagged = _tagged_args(args)
+        if tagged:
+            ev["args"] = tagged
         self._events.append(ev)
 
     def events(self) -> list[dict]:

@@ -479,7 +479,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'storage.issuermetadata', 'storage.noop', 'storage.rediscache',"
         " 'ingest.ctclient', 'ingest.health', 'ingest.overlap',"
         " 'telemetry.flight', 'telemetry.metrics', 'utils.fakelog',"
-        " 'utils.backoff', 'utils.durations', 'parallel.mesh'):\n"
+        " 'utils.backoff', 'utils.durations', 'parallel.mesh',"
+        " 'ops.hashtable', 'serve', 'serve.snapshot', 'serve.server',"
+        " 'serve.batcher', 'serve.cache', 'serve.client', 'cmd.ct_query',"
+        " 'cmd.ct_getcert'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and ("
         "m == 'ct_mapreduce_tpu' or m.startswith('ct_mapreduce_tpu.') "
@@ -491,4 +494,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 55
+    assert int(out.stdout.strip()) >= 64
+
+
+def test_open_layout_checkpoint_matches_jax(tmp_path, monkeypatch, corpus):
+    """``CTMR_TABLE=open``: one batch of one certificate, then
+    ``save_checkpoint``. The port builds the open-addressing table (it
+    used to build the bucket table and write ``layout="bucket"``), and
+    its drain and every checkpoint array equal the JAX package's."""
+    monkeypatch.setenv("CTMR_TABLE", "open")
+    templates, _ = corpus
+    entries = [(syncerts.stamp_serial(templates[0], 7), templates[0].issuer_der)]
+    kw = dict(capacity=1 << 10, batch_size=64, now=NOW)
+    j = TpuAggregator(**kw)
+    t = TorchAggregator(device="cpu", **kw)
+    paths = {}
+    for name, agg in (("jax", j), ("port", t)):
+        agg.configure_checkpointing(mode="ck01")
+        assert agg.ingest(entries).was_unknown.all()
+        paths[name] = str(tmp_path / f"{name}.npz")
+        agg.save_checkpoint(paths[name])
+    assert _snapshot(t.drain()) == _snapshot(j.drain())
+    with np.load(paths["port"], allow_pickle=True) as zt, \
+            np.load(paths["jax"], allow_pickle=True) as zj:
+        assert str(zt["layout"]) == "open"
+        assert zt["keys"].shape == (1 << 10, 4)
+        assert sorted(zt.files) == sorted(zj.files)
+        for name in zj.files:
+            np.testing.assert_array_equal(zt[name], zj[name], err_msg=name)

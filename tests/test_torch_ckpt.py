@@ -279,25 +279,29 @@ def test_segments_equal_across_packages(writers):
 
 
 def test_refused_formats(tmp_path, writers, monkeypatch):
-    """An open-layout table and a filter capture are not ported: loading
-    either raises, naming its ROADMAP item, and changes nothing."""
+    """A filter capture is not ported: loading it raises, naming its
+    ROADMAP item, and changes nothing. An open-layout table is ported
+    (item 8): it loads, in its own layout, to the writer's digest."""
     monkeypatch.setenv("CTMR_TABLE", "open")
     opened = HostSnapshotAggregator(capacity=CAP)
     opened.configure_checkpointing(mode="ck01")
     open_path = str(tmp_path / "open.npz")
     opened.save_checkpoint(open_path)
     monkeypatch.delenv("CTMR_TABLE")
+    r = _port_agg()
+    r.load_checkpoint(open_path)
+    assert r.table.rows.shape == (CAP, 5)
+    assert ckpt_state_digest(r) == jharness.ckpt_state_digest(opened)
     captured = HostSnapshotAggregator(capacity=CAP)
     captured.enable_filter_capture()
     captured.configure_checkpointing(mode="ck01")
     cap_path = str(tmp_path / "capture.npz")
     captured.save_checkpoint(cap_path)
-    for path, item in ((open_path, "item 8"), (cap_path, "item 10")):
-        r = _port_agg()
-        before = ckpt_state_digest(r)
-        with pytest.raises(ValueError, match=item):
-            r.load_checkpoint(path)
-        assert ckpt_state_digest(r) == before
+    r = _port_agg()
+    before = ckpt_state_digest(r)
+    with pytest.raises(ValueError, match="item 10"):
+        r.load_checkpoint(cap_path)
+    assert ckpt_state_digest(r) == before
 
 
 # -- tests/test_ckpt.py on the port --------------------------------------

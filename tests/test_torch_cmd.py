@@ -12,8 +12,11 @@ database backend, ``certPath``, ``-offset``/``-limit``,
 drain, the same ``storage-statistics`` text (``-v 1``, ``-v 2``, ``-v
 3``, ``-json``) and PEM trees equal file for file. Each package's
 report reads the other's checkpoint to the same text. The cases of
-``tests/test_cmd.py`` that need no mesh, query plane or getcert are
-asserted on the port along the way.
+``tests/test_cmd.py`` that need no mesh are asserted on the port along
+the way: ``ct-getcert`` (direct and through the query plane's
+``/getcert``) prints the JAX package's PEM, ``ct-query`` prints the JAX
+package's JSON over either table layout (the answering view's age
+masked), and ct-fetch with ``queryPort`` serves the run's serials.
 
 Size: ``tableBits`` 12, ``batchSize`` 64, logs of 48 entries, so the
 JAX side compiles each program once for the file. Report lines carry
@@ -306,7 +309,7 @@ def test_mesh_shape_on_the_port(tmp_path, monkeypatch):
 @pytest.mark.parametrize("directive,item", [
     ("numWorkers = 2", "item 12"), ("coordinatorBackend = solo", "item 12"),
     ("checkpointPeriod = 1s", "item 12"), ("emitFilter = true", "item 10"),
-    ("queryPort = 9999", "item 9"), ("verifySignatures = true", "item 11"),
+    ("verifySignatures = true", "item 11"),
     ("metricsPort = 9464", "item 14"), ("fleetMetrics = true", "item 14"),
     ("sloMaxIngestLag = 10", "item 14")])
 def test_unported_directives_raise(tmp_path, monkeypatch, directive, item):
@@ -427,3 +430,179 @@ def test_config_parses_as_jax(name, tmp_path):
                           "meshShape", "overlapWorkers", "aggStatePath"):
             assert directive in usage, directive
         assert TConfig._DIRECTIVES == JConfig._DIRECTIVES
+
+
+# -- ct-getcert, ct-query and the query plane -----------------------------
+
+
+def _getcert(pkg, argv, transport) -> tuple[int, str]:
+    import importlib
+
+    mod = importlib.import_module(f"{PKG[pkg][3]}.cmd.ct_getcert")
+    out = io.StringIO()
+    return mod.main(argv, transport=transport, out=out), out.getvalue()
+
+
+def test_ct_getcert(capsys):
+    """One entry by index, printed as the JAX package prints it."""
+    outs = {}
+    for pkg in PKG:
+        log = _log(pkg)
+        outs[pkg] = _getcert(pkg, ["-log", log.url, "-index", "1"],
+                             log.transport)
+    assert outs["port"] == outs["jax"]
+    rc, pem = outs["port"]
+    assert rc == 0 and pem.startswith("-----BEGIN CERTIFICATE-----")
+    from ct_mapreduce_tpu_torch.core import der as hostder
+
+    assert pem.encode() == hostder.der_to_pem(CERTS[1][0])
+
+
+def test_ct_getcert_routes_via_query_plane(tmp_path):
+    """With a query plane up, ct-getcert fetches through its /getcert
+    proxy (no direct transport at all), by ``-queryAddr`` or by an ini's
+    ``queryPort``; with the plane down it falls back to the direct
+    transport. Every PEM equals the JAX package's direct fetch."""
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+    from ct_mapreduce_tpu_torch.serve.server import QueryServer
+
+    jlog = _log("jax")
+    want = {i: _getcert("jax", ["-log", jlog.url, "-index", str(i)],
+                        jlog.transport) for i in (0, 1)}
+    log = _log("port")
+    agg = TorchAggregator(capacity=1 << 10, batch_size=64, device="cpu")
+    srv = QueryServer(agg, 0, host="127.0.0.1",
+                      transport=log.transport).start()
+    try:
+        assert _getcert("port", ["-log", log.url, "-index", "1",
+                                 "-queryAddr", f"127.0.0.1:{srv.port}"],
+                        None) == want[1]
+        ini = tmp_path / "q.ini"
+        ini.write_text(f"queryPort = {srv.port}\n")
+        assert _getcert("port", ["-log", log.url, "-index", "0",
+                                 "-config", str(ini)], None) == want[0]
+    finally:
+        srv.stop()
+    assert _getcert("port", ["-log", log.url, "-index", "1",
+                             "-queryAddr", f"127.0.0.1:{srv.port}"],
+                    log.transport) == want[1]
+
+
+@pytest.mark.parametrize("layout", ["bucket", "open"])
+def test_ct_query_cli_matches_jax(layout, monkeypatch):
+    """ct-query against each package's query plane over the same
+    ingest: the same exit codes and the same JSON (the view's age
+    masked); an unreachable plane exits 2."""
+    import importlib
+
+    from ct_mapreduce_tpu.agg.aggregator import TpuAggregator
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+    from ct_mapreduce_tpu_torch.core import der as hostder
+    from ct_mapreduce_tpu_torch.core.types import ExpDate, Issuer
+    from ct_mapreduce_tpu_torch.utils import syncerts
+
+    monkeypatch.setenv("CTMR_TABLE", layout)
+    tpl = syncerts.make_template(issuer_cn="Query CLI CA")
+    entries = [(syncerts.stamp_serial(tpl, j), tpl.issuer_der)
+               for j in range(5)]
+    issuer_id = Issuer.from_spki(hostder.parse_cert(tpl.issuer_der).spki).id()
+    exp_id = ExpDate.from_unix_hour(
+        hostder.parse_cert(tpl.leaf_der).not_after_unix_hour).id()
+
+    def serial_hex(j):
+        der = syncerts.stamp_serial(tpl, j)
+        return der[tpl.serial_off:tpl.serial_off + tpl.serial_len].hex()
+
+    # Masked: the answering view's age and epoch and the replica
+    # pool's state (the second replica is captured on a background
+    # thread), and the /healthz totals of the process-wide metric sink.
+    racy = ("staleness_s", "snapshot_age_s", "replica_ages_s", "epoch",
+            "snapshot_epoch", "replicas", "replica_epochs",
+            "replica_device", "refresh_in_flight", "shed_total",
+            "batches_total", "cache_hit_total", "cache_miss_total",
+            "device_fallback_total")
+
+    def mask(doc):
+        if isinstance(doc, dict):
+            return {k: "*" if k in racy else mask(v) for k, v in doc.items()}
+        return doc
+
+    calls = [
+        ["-issuer", issuer_id, "-expDate", exp_id, "-serial", serial_hex(0),
+         "-serial", serial_hex(4)],
+        ["-issuer", issuer_id, "-expDate", exp_id, "-serial",
+         serial_hex(999)],
+        ["-issuerMeta", issuer_id],
+        ["-health"],
+    ]
+    got = {}
+    kw = dict(capacity=1 << 10, batch_size=64, max_capacity=1 << 10)
+    for pkg, agg in (("jax", TpuAggregator(**kw)),
+                     ("port", TorchAggregator(device="cpu", **kw))):
+        server = importlib.import_module(f"{PKG[pkg][3]}.serve.server")
+        cli = importlib.import_module(f"{PKG[pkg][3]}.cmd.ct_query")
+        agg.ingest(entries)
+        srv = server.QueryServer(agg, 0, host="127.0.0.1",
+                                 max_delay_s=0.001).start()
+        addr = f"127.0.0.1:{srv.port}"
+        got[pkg] = []
+        try:
+            for argv in calls:
+                out = io.StringIO()
+                rc = cli.main(["-addr", addr] + argv, out=out)
+                doc = json.loads(out.getvalue())
+                assert doc.get("epoch", 1) >= 1
+                got[pkg].append((rc, mask(doc)))
+        finally:
+            srv.stop()
+        assert cli.main(["-addr", addr, "-health"], out=io.StringIO()) == 2
+    assert got["port"] == got["jax"]
+    (rc0, known), (rc1, unknown), (rc2, meta), (rc3, health) = got["port"]
+    assert (rc0, rc1, rc2, rc3) == (0, 1, 0, 0)
+    assert [r["known"] for r in known["results"]] == [True, True]
+    assert meta["unknown_total"] == 5 and health["healthy"] is True
+
+
+def test_ct_fetch_starts_query_plane(tmp_path, monkeypatch):
+    """queryPort on the port's ct-fetch: the query plane answers for the
+    run's serials while it lives (probed just before ct-fetch stops it)
+    and is gone after main() returns."""
+    import socket
+
+    from ct_mapreduce_tpu_torch.core import der as hostder
+    from ct_mapreduce_tpu_torch.core.types import ExpDate, Issuer
+    from ct_mapreduce_tpu_torch.serve import server as serve_server
+    from ct_mapreduce_tpu_torch.serve.client import QueryClient
+
+    log = _log("port")
+    _patch(monkeypatch, "port", log)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    leaf, ca = CERTS[0]
+    f = hostder.parse_cert(leaf)
+    query = {"issuer": Issuer.from_spki(hostder.parse_cert(ca).spki).id(),
+             "expDate": ExpDate.from_unix_hour(f.not_after_unix_hour).id(),
+             "serial": f.serial.hex()}
+    ghost = dict(query, serial="7f" + f.serial.hex())
+    probed = {}
+    orig_stop = serve_server.QueryServer.stop
+
+    def spy_stop(self):
+        try:
+            client = QueryClient(f"127.0.0.1:{self.port}")
+            probed["health"] = client.healthz()
+            probed["query"] = client.query([query, ghost])
+        finally:
+            orig_stop(self)
+
+    monkeypatch.setattr(serve_server.QueryServer, "stop", spy_stop)
+    ini = tmp_path / "ct.ini"
+    ini.write_text(_ini(f"logList = {log.url}", BASE_INI,
+                        f"aggStatePath = {tmp_path / 'agg.npz'}",
+                        f"queryPort = {port}"))
+    assert tfetch.main(["-config", str(ini)], device="cpu") == 0
+    assert probed["health"]["healthy"] is True
+    assert [r["known"] for r in probed["query"]["results"]] == [True, False]
+    with pytest.raises(OSError):
+        QueryClient(f"127.0.0.1:{port}", timeout_s=2).healthz()

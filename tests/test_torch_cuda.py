@@ -1,6 +1,7 @@
 """The port on a CUDA card: each kernel (the fingerprint SHA-256, the
 DER walker, the ten probe stages) against its plain PyTorch version,
-and the tensor-op layers on the card against the same code on the CPU.
+and the tensor-op layers on the card (both dedup-table layouts, the
+query plane's pinned views) against the same code on the CPU.
 Tolerance: exact equality (integer arithmetic throughout).
 
 Every test here needs a CUDA device and skips without one. The file
@@ -17,7 +18,8 @@ import torch
 
 from ct_mapreduce_tpu_torch.core import packing
 from ct_mapreduce_tpu_torch.ops import (
-    buckettable, der_kernel, der_kernel_cuda, pipeline, sha256, sha256_cuda)
+    buckettable, der_kernel, der_kernel_cuda, hashtable, pipeline, sha256,
+    sha256_cuda)
 from ct_mapreduce_tpu_torch.tools import mosaic_probe
 from ct_mapreduce_tpu_torch.utils import dercases
 
@@ -101,6 +103,116 @@ def test_insert_and_step_on_card_match_cpu(cuda):
     for c, g in zip(*outs):
         np.testing.assert_array_equal(g, c)
     assert (outs[0][0][:, buckettable.FILL_WORD] == buckettable.SLOTS).any()
+
+
+def test_open_table_on_card_matches_cpu(cuda):
+    """The open-addressing insert and contains give the same rows,
+    count and flags on the card as on the CPU, bit for bit: duplicates
+    in a batch (the scatter-min election), replays, invalid lanes and
+    probe overflow in a table past its load."""
+    rng = np.random.default_rng(12)
+    pool = rng.integers(0, 1 << 32, (6000, 4), dtype=np.uint64).astype(np.uint32)
+    batches = []
+    for _ in range(4):
+        keys = pool[rng.integers(0, len(pool), 4096)]
+        keys[0] = 0  # the all-zero key takes the sentinel's place
+        meta = rng.integers(0, 1 << 32, 4096, dtype=np.uint64).astype(np.uint32)
+        batches.append((keys, meta, rng.random(4096) < 0.95))
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        table = hashtable.make_table(1 << 13, device=dev)
+        out = []
+        for keys, meta, valid in batches:
+            table, wu, ovf = hashtable.insert(
+                table, torch.from_numpy(keys.view(np.int32)).to(dev),
+                torch.from_numpy(meta.view(np.int32)).to(dev),
+                torch.from_numpy(valid).to(dev), max_probes=8)
+            out += [hashtable.host_rows(table).copy(), int(table.count),
+                    wu.cpu().numpy(), ovf.cpu().numpy()]
+        probe = torch.from_numpy(pool.view(np.int32)).to(dev)
+        out.append(hashtable.contains(table, probe, max_probes=8).cpu().numpy())
+        runs.append(out)
+    for c, g in zip(*runs):
+        np.testing.assert_array_equal(g, c)
+    assert runs[0][-2].any(), "no lane overflowed"
+    np.testing.assert_array_equal(
+        runs[0][-1], hashtable.contains_np(runs[0][-5], pool, max_probes=8))
+
+
+@pytest.mark.parametrize("layout", ["bucket", "open"])
+def test_pinned_view_on_card_answers_like_contains_np(cuda, layout,
+                                                      monkeypatch):
+    """A ReplicaPool over an aggregator on the card pins its replicas'
+    rows on CUDA, and their device ``contains`` answers equal the host
+    ``contains_np`` mirror's, with no device fallback."""
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+    from ct_mapreduce_tpu_torch.serve.snapshot import ReplicaPool
+    from ct_mapreduce_tpu_torch.telemetry import metrics
+    from ct_mapreduce_tpu_torch.utils import syncerts
+
+    monkeypatch.setenv("CTMR_TABLE", layout)
+    tpl = syncerts.make_template(issuer_cn="Card Serve CA")
+    agg = TorchAggregator(capacity=1 << 12, batch_size=256, device=cuda)
+    agg.ingest([(syncerts.stamp_serial(tpl, j), tpl.issuer_der)
+                for j in range(1000)])
+    sink = metrics.InMemSink()
+    prev = metrics.get_sink()
+    metrics.set_sink(sink)
+    try:
+        pool = ReplicaPool(agg, n_replicas=2, max_staleness_s=1e9).warm()
+        rng = np.random.default_rng(4)
+        keys, _ = agg._drain_table()
+        fps = np.concatenate([
+            keys, rng.integers(0, 1 << 32, (777, 4),
+                               dtype=np.uint64).astype(np.uint32)])
+        live = agg.table.rows.cpu().numpy().view(np.uint32)
+        here = torch.device("cuda", torch.cuda.current_device())
+        for v in pool._replicas:
+            assert v.layout == layout and v.pinned_device == here
+            assert v._rows is None  # captured on the card, no host copy
+            np.testing.assert_array_equal(v.rows, live)
+            host = v._contains_host(fps)
+            assert host[: len(keys)].all() and not host[len(keys):].any()
+            np.testing.assert_array_equal(v.contains_fps(fps), host)
+            assert v._device and v.pinned_device.type == "cuda"
+        assert sink.snapshot()["counters"].get("serve.device_fallback", 0) == 0
+    finally:
+        metrics.set_sink(prev)
+
+
+def test_pinned_view_on_card_raises_instead_of_host_fallback(cuda,
+                                                             monkeypatch):
+    """A fault in a CUDA view's ``contains`` fails the lookup: the view
+    stays on the card and no host fallback is counted."""
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+    from ct_mapreduce_tpu_torch.ops import pipeline
+    from ct_mapreduce_tpu_torch.serve.snapshot import capture_view
+    from ct_mapreduce_tpu_torch.telemetry import metrics
+    from ct_mapreduce_tpu_torch.utils import syncerts
+
+    tpl = syncerts.make_template(issuer_cn="Card Fault CA")
+    agg = TorchAggregator(capacity=1 << 12, batch_size=256, device=cuda)
+    agg.ingest([(syncerts.stamp_serial(tpl, j), tpl.issuer_der)
+                for j in range(100)])
+    view = capture_view(agg, epoch=1, device=True)
+    here = torch.device("cuda", torch.cuda.current_device())
+    assert view.pinned_device == here
+
+    def fault(*a, **k):
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    monkeypatch.setattr(pipeline, "table_contains", fault)
+    sink = metrics.InMemSink()
+    prev = metrics.get_sink()
+    metrics.set_sink(sink)
+    try:
+        keys, _ = agg._drain_table()
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            view.contains_fps(keys)
+        assert view._device and view.pinned_device == here
+        assert sink.snapshot()["counters"].get("serve.device_fallback", 0) == 0
+    finally:
+        metrics.set_sink(prev)
 
 
 def test_aggregator_on_card_matches_cpu(cuda):

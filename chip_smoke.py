@@ -11,9 +11,10 @@ The port is ``ct_mapreduce_tpu_torch``, imported from this checkout.
 
 Phases, none of them caught — any failure exits non-zero:
 
-1. card: name and power limit (``nvidia-smi``), then the three kernel
+1. card: name and power limit (``nvidia-smi``), then the four kernel
    libraries (``nvcc`` for sm_90a: the fingerprint SHA-256 K1, the DER
-   walker K3, the ten probe stages) and the native sidecar decoder
+   walker K3, the ten probe stages, the Bloom bit-scatter K5) and the
+   native sidecar decoder
    (``g++``), all built from this checkout at once;
 2. K1 against its plain PyTorch version on 2^20 lanes (bit for bit), a
    sample against ``hashlib`` and the host fingerprint, both timed with
@@ -78,7 +79,7 @@ Phases, none of them caught — any failure exits non-zero:
    server in a process of its own (``utils/fakelog.py`` over
    ``http.server`` on 127.0.0.1, started first so it builds its log
    while phases 1-9 run) serves phase 8's stream as 1,000-entry
-   get-entries pages, 2,097,152 entries; ct-fetch downloads it over the
+   get-entries pages, 1,572,864 entries; ct-fetch downloads it over the
    client's urllib transport with ``backend = tpu``, ``batchSize``
    65,536, ``tableBits`` 20 (it grows once), ``deviceQueueDepth`` 2 and
    ``aggStatePath``: (a) unstaged, its ``storage-statistics -v 1`` and
@@ -106,12 +107,31 @@ Phases, none of them caught — any failure exits non-zero:
    ``ct-query-torch`` and ``ct-getcert-torch -queryAddr`` run against
    the plane as processes (the PEM equal to the log's entry). No view
    may fall back to the host (``serve.device_fallback`` stays 0), and
-   every replica's rows are pinned on CUDA.
+   every replica's rows are pinned on CUDA;
+12. filter emission on the card: (0) the Bloom bit-scatter K5 against
+   its plain version at 2^20 lanes, one layer and a fused round of
+   1,024 groups, bit for bit, both timed; (a) filter-main: walker-main's
+   first 2 batches (about a million serials in 13 groups) through an
+   ``IngestModel`` with ``aggStatePath`` (ck01) and filter emission
+   (fl02): the capture equals the oracle's serial sets, ``save()`` emits
+   the artifact with ``filter.emit_error`` 0; fl01 over the same capture;
+   each artifact equals the host lane's (``CTMR_FILTER_DEVICE=0``),
+   ``build_artifact`` over the oracle's sets and a build from the ck01
+   restored on the CPU; every captured serial answers known, never-logged
+   ones at most twice the 1% target; (b) filter-fetch: ct-fetch with
+   ``emitFilter`` over (iii)'s log, ``ct-filter-torch build`` over its
+   state equal to the emitted file, ``inspect -json`` and ``query`` (a
+   process: exit 0 known, 1 never logged); (c) filter-scale: a streamed
+   fl02 build through ``PackedGroupSource`` at 2^24 serials in 1,024
+   groups (64 issuers x 16 hours, Zipf(1.1) sizes, lengths 8..20), every
+   K5 dispatch held to its plain version, K1 and K5 keys/s, every key a
+   member.
 
 The kernels' launch counts are set to 0 just before each main path
 (walker, pre-parsed, both lanes on the open table, probe ladder, each
-sink configuration, each ct-fetch run, the served ct-fetch) and read
-just after it. Prints the
+sink configuration, each ct-fetch run, the served ct-fetch, the filter
+emission and fl01 build of 12 (a), the ct-fetch of 12 (b), the build of
+12 (c)) and read just after it. Prints the
 card line, a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -180,15 +200,16 @@ def card_line() -> str:
 
 
 def kernel_libs() -> dict:
-    from ct_mapreduce_tpu_torch.ops import der_kernel_cuda, sha256_cuda
+    from ct_mapreduce_tpu_torch.ops import (
+        bloom_cuda, der_kernel_cuda, sha256_cuda)
     from ct_mapreduce_tpu_torch.tools import mosaic_probe
 
     return {"k1": sha256_cuda.LIB, "k3": der_kernel_cuda.LIB,
-            "probe": mosaic_probe.LIB}
+            "probe": mosaic_probe.LIB, "k5": bloom_cuda.LIB}
 
 
 def build_all() -> dict:
-    """Build the three kernel libraries and the native decoder at once,
+    """Build the four kernel libraries and the native decoder at once,
     one compiler process each."""
     from ct_mapreduce_tpu_torch import native
 
@@ -518,20 +539,24 @@ PROBE_REPLACES = (119, 127, 137, 147, 166, 183, 197, 223, 247, 361)
 
 
 def reset_counts() -> None:
-    from ct_mapreduce_tpu_torch.ops import der_kernel_cuda, sha256_cuda
+    from ct_mapreduce_tpu_torch.ops import (
+        bloom_cuda, der_kernel_cuda, sha256_cuda)
     from ct_mapreduce_tpu_torch.tools import mosaic_probe
 
     sha256_cuda.LAUNCHES = 0
     der_kernel_cuda.LAUNCHES = 0
+    bloom_cuda.LAUNCHES = 0
     mosaic_probe.LAUNCHES[:] = [0] * len(mosaic_probe.LAUNCHES)
 
 
 def read_counts() -> dict:
-    from ct_mapreduce_tpu_torch.ops import der_kernel_cuda, sha256_cuda
+    from ct_mapreduce_tpu_torch.ops import (
+        bloom_cuda, der_kernel_cuda, sha256_cuda)
     from ct_mapreduce_tpu_torch.tools import mosaic_probe
 
     return {"sha256_fp": sha256_cuda.LAUNCHES,
             "der_walk": der_kernel_cuda.LAUNCHES,
+            "bloom_scatter": bloom_cuda.LAUNCHES,
             "probe": list(mosaic_probe.LAUNCHES)}
 
 
@@ -1434,7 +1459,10 @@ def checkpoints(device, staged_model, staged_drain, seed: int) -> dict:
 # -- phase 10: ct-fetch on the card -------------------------------------
 
 FETCH_CHUNK = SINK_BATCH  # entries the log server makes a stream call
-FETCH_ENTRIES = 1 << 21  # 2,097,152 entries in the served log
+# Entries in the served log: 24 chunks (32 before phase 12 came; cut so
+# that the script stays near half its time limit). Each run over it
+# still grows its table once.
+FETCH_ENTRIES = 24 * (1 << 16)
 FETCH_TABLE_BITS = 20  # 1,572,864 slots: each run over the log grows once
 # (d): the log at the first run, grown. Cut from (2^17, 2^18) so the
 # script, phases 5b and 11 included, stays near half its time limit: the
@@ -2458,9 +2486,586 @@ def profile_sink(device, name: str, seed: int, out_dir: str) -> dict:
     return out
 
 
+# -- phase 12: filter emission on the card --------------------------------
+
+FILTER_BATCHES = 2  # walker-main's first two batches (about 1M serials)
+FILTER_FP = 0.01  # the target false-positive rate (the default)
+FILTER_GHOSTS = 1 << 15  # never-logged serials queried per artifact
+SCALE_SERIALS = 1 << 24  # (c): serials in the streamed fl02 build
+SCALE_ISSUERS, SCALE_HOURS = 64, 16  # (c): 1,024 (issuer, hour) groups
+SCALE_CHUNK = 1 << 20  # (c): serials a streamed key block
+BLOOM_LANES = 1 << 20  # K5's timed shape, in each form
+BLOOM_GROUPS = 1024  # groups of the fused form's timed shape
+
+
+def _filter_dir() -> str:
+    d = os.path.join(HERE, "build", "smoke_filter")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _fresh(*paths: str) -> None:
+    """Remove earlier runs' files (and any ck02 chain beside them)."""
+    import glob
+
+    for p in paths:
+        for f in [p] + glob.glob(p + ".ck*"):
+            if os.path.exists(f):
+                os.unlink(f)
+
+
+def bloom_bound(lanes: int, probes: int, arena_words: int) -> dict:
+    """K5's least time for ``lanes`` keys making ``probes`` probes into
+    an arena of ``arena_words`` words: the bytes it must move (each key
+    and group id read once, the arena read and written once; the group
+    vectors are a few KB) over the HBM rate, against its least integer
+    operations over the INT32 rate. ``sector_ms`` is a second yardstick,
+    not the bound: every probe as one 32-byte sector read-modify-write
+    out of device memory, as if no arena word stayed in L2."""
+    from ct_mapreduce_tpu_torch.ops import bloom
+
+    byte_ms = (lanes * 20 + arena_words * 8) / HBM_BYTES_PER_S * 1e3
+    op_ms = ((lanes * bloom.OPS_PER_LANE + probes * bloom.OPS_PER_PROBE)
+             / INT32_OPS_PER_S * 1e3)
+    return {"bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "bytes_bound_ms": byte_ms, "ops_bound_ms": op_ms,
+            "sector_ms": (lanes * 20 + probes * 32) / HBM_BYTES_PER_S * 1e3}
+
+
+def bloom_check(device, seed: int) -> dict:
+    """Phase 12 (0): K5 against its plain version at BLOOM_LANES lanes in
+    both forms, bit for bit, and both timed with CUDA events in turns:
+    one layer (one group at offset 0, sized for the lanes at FILTER_FP)
+    and a fused round of BLOOM_GROUPS groups of Zipf(1.1) sizes, laid
+    out as the grouped build lays them (contiguous per group)."""
+    import numpy as np
+    import torch
+
+    from ct_mapreduce_tpu_torch.filter.cascade import keys_tensor, layer_params
+    from ct_mapreduce_tpu_torch.ops import bloom, bloom_cuda
+    from ct_mapreduce_tpu_torch.utils import syncerts
+
+    rng = np.random.default_rng(seed + 12)
+    n = BLOOM_LANES
+    keys = keys_tensor(rng.integers(0, 2**32, (n, 4), np.uint32), device)
+    m, k = layer_params(n, FILTER_FP)
+    sizes = rng.multinomial(n - BLOOM_GROUPS,
+                            syncerts.zipf_weights(BLOOM_GROUPS, 1.1)) + 1
+    params = np.array([layer_params(int(c), FILTER_FP) for c in sizes])
+    forms = {
+        "layer": (np.zeros((n,), np.int32), np.array([0]), np.array([m]),
+                  np.array([k])),
+        "fused": (np.repeat(np.arange(BLOOM_GROUPS), sizes).astype(np.int32),
+                  np.concatenate(([0], np.cumsum(params[:, 0])[:-1])),
+                  params[:, 0], params[:, 1]),
+    }
+    out = {}
+    for form, (gid, offs, ms, ks) in forms.items():
+        total = int(offs[-1] + ms[-1])
+        t = (keys, torch.from_numpy(gid).to(device),
+             torch.from_numpy(offs.astype(np.int64)).to(device),
+             torch.from_numpy(ms.astype(np.int32)).to(device),
+             torch.from_numpy(ks.astype(np.int32)).to(device))
+        got = torch.zeros((total // 32,), dtype=torch.int32, device=device)
+        bloom_cuda.scatter(got, *t, 7)
+        want = torch.zeros_like(got)
+        bloom.bloom_scatter_plain(want, *t, 7)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        check(torch.equal(got, want),
+              f"K5 ({form}) != plain on {n} lanes (max abs err {err})")
+        kernel_ms, plain_ms = [], []
+        for _ in range(2):  # in turns: kernel, plain, kernel, plain
+            kernel_ms += cuda_times(lambda: bloom_cuda.scatter(got, *t, 7),
+                                    TIMED_REPS, KERNEL_CALLS_PER_TIMING)
+            plain_ms += cuda_times(
+                lambda: bloom.bloom_scatter_plain(want, *t, 7), PLAIN_REPS,
+                warmup=1)
+        probes = int(ks[gid].sum()) if form == "fused" else n * k
+        st = dict(bloom_bound(n, probes, total // 32), lanes=n,
+                  groups=len(ms), probes=probes, arena_bits=total,
+                  max_abs_err=err, kernel_ms=median(kernel_ms),
+                  kernel_ms_min=min(kernel_ms), kernel_ms_max=max(kernel_ms),
+                  plain_ms=median(plain_ms), timings=2 * TIMED_REPS)
+        st["share_of_bound"] = st["bound_ms"] / st["kernel_ms"]
+        out[form] = st
+        print(f"phase 12 (0): K5 {form} == plain on {n} lanes ({len(ms)} "
+              f"groups, {probes} probes); kernel {st['kernel_ms']:.4f} ms, "
+              f"plain {st['plain_ms']:.3f} ms, bound {st['bound_ms']:.4f} ms "
+              f"({st['bound_by']}), {st['share_of_bound']:.1%} of bound; "
+              f"every probe a sector RMW {st['sector_ms']:.4f} ms", flush=True)
+        del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _oracle_serials(stream: Stream, seen) -> dict:
+    """{(issuerID, expHour): set of serial bytes} of the ``seen``
+    counters: the stream's own truth, independent of the port."""
+    import numpy as np
+
+    ctr = np.nonzero(seen)[0]
+    tof = stream.template_of[ctr]
+    ser, ln = stream.serial_bytes(tof, ctr)
+    out: dict = {}
+    for t in np.unique(tof):
+        sel = np.nonzero(tof == t)[0]
+        tr = stream.truth[t]
+        rows, lens = ser[sel], ln[sel]
+        out.setdefault((tr["issuer"], tr["hour"]), set()).update(
+            rows[i, :lens[i]].tobytes() for i in range(sel.size))
+    return out
+
+
+def _ghost_rate(art, stream: Stream, device, seed: int) -> dict:
+    """False-positive share of FILTER_GHOSTS never-logged serials (fresh
+    counters past the stream's) under the kept issuers' groups."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kept = np.nonzero(~stream.filtered)[0]
+    tof = rng.choice(kept, FILTER_GHOSTS).astype(np.int32)
+    ctr = stream.next_counter + 1 + np.arange(FILTER_GHOSTS, dtype=np.int64)
+    ser, ln = stream.serial_bytes(tof, ctr)
+    hits = 0
+    for t in np.unique(tof):
+        tr = stream.truth[t]
+        g = art.group_for(tr["issuer"], tr["hour"])
+        sel = np.nonzero(tof == t)[0]
+        hits += int(art.query_group(g, [ser[i, :ln[i]].tobytes()
+                                        for i in sel], device=device).sum())
+    return {"ghosts": FILTER_GHOSTS, "false_positives": hits,
+            "rate": hits / FILTER_GHOSTS}
+
+
+def filter_main(device, seed: int, plain_batch_s: list) -> dict:
+    """Phase 12 (a): walker-main's first FILTER_BATCHES batches through an
+    ``IngestModel`` with ``aggStatePath`` (ck01) and filter emission
+    (fl02); ``save()`` writes the checkpoint and the artifact. Then fl01
+    over the same capture. Each artifact's bytes must equal the host
+    lane's (``CTMR_FILTER_DEVICE=0``), ``build_artifact`` over the
+    oracle's own serial sets, and a build from the ck01 restored on a
+    CPU aggregator; every captured serial answers known, never-logged
+    ones at most twice the target rate; ``filter.emit_error`` stays 0."""
+    import numpy as np
+    import torch
+
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+    from ct_mapreduce_tpu_torch.filter import (
+        FilterArtifact, build_artifact, build_from_aggregator, stream as fst)
+    from ct_mapreduce_tpu_torch.filter.artifact import capture_by_identity
+    from ct_mapreduce_tpu_torch.models.ingest_model import IngestModel
+    from ct_mapreduce_tpu_torch.telemetry import metrics
+
+    d = _filter_dir()
+    state = os.path.join(d, "main.npz")
+    fpath = state + ".filter"
+    _fresh(state, fpath)
+    stream = Stream(seed, cn_filter=True)
+    cfg = _config(BATCH_LOG2, TABLE_BITS, False, stream.cn_prefixes())
+    cfg.agg_state_path = state
+    model = IngestModel.from_config(cfg, device=device)
+    agg = model.aggregator
+    agg.configure_checkpointing(mode="ck01")
+    agg.configure_filter_emission(fpath, FILTER_FP, fmt="fl02")
+    idx_of = stream.issuer_indices(model)
+    n = 1 << BATCH_LOG2
+    seen = np.zeros((stream.next_counter + FILTER_BATCHES * n + 1,), bool)
+    batch_s = []
+    reset_counts()
+    for _ in range(FILTER_BATCHES):
+        data, length, tof, ctr = stream.batch(n, 0.5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = model.ingest_packed(data, length, idx_of[tof],
+                                  np.ones((n,), bool))
+        batch_s.append(time.perf_counter() - t0)
+        passing = ~stream.filtered[tof]
+        fresh = np.unique(ctr[passing])
+        check(int(res.was_unknown.sum()) == int((~seen[fresh]).sum()),
+              "filter-main: unknown lanes differ from the oracle")
+        seen[fresh] = True
+    ingest_launches = read_counts()
+    oracle = _oracle_serials(stream, seen)
+    check(capture_by_identity(agg.filter_capture, agg.registry) == oracle,
+          "filter-main: the capture differs from the oracle's serial sets")
+    sink = metrics.get_sink()
+    errors0 = sink.snapshot()["counters"].get("filter.emit_error", 0)
+    reset_counts()
+    rss0 = fst._rss_bytes()
+    t0 = time.perf_counter()
+    model.save()
+    save_s = time.perf_counter() - t0
+    launches = {"fl02": read_counts()}
+    snap = sink.snapshot()
+    check(snap["counters"].get("filter.emit_error", 0) == errors0,
+          "filter-main: the emission failed (filter.emit_error)")
+    check(os.path.exists(fpath), "filter-main: no artifact beside the state")
+    build_s = {"fl02": snap["samples"]["filter.build_s"]["max"]}
+    with open(fpath, "rb") as f:
+        blobs = {"fl02": f.read()}
+    reset_counts()
+    t0 = time.perf_counter()
+    blobs["fl01"] = build_from_aggregator(agg, fp_rate=FILTER_FP,
+                                          fmt="fl01").to_bytes()
+    build_s["fl01"] = time.perf_counter() - t0
+    launches["fl01"] = read_counts()
+    peak_rss = max(fst._rss_bytes(), int(sink.snapshot()["gauges"].get(
+        "filter.build_rss_bytes", 0)))
+    for fmt, c in launches.items():
+        check(c["sha256_fp"] > 0 and c["bloom_scatter"] > 0,
+              f"filter-main ({fmt}): K1 or K5 never ran")
+    host_s, oracle_s = {}, {}
+    prev = os.environ.get("CTMR_FILTER_DEVICE")
+    os.environ["CTMR_FILTER_DEVICE"] = "0"
+    try:
+        reset_counts()
+        for fmt in blobs:
+            t0 = time.perf_counter()
+            host = build_from_aggregator(agg, fp_rate=FILTER_FP,
+                                         fmt=fmt).to_bytes()
+            host_s[fmt] = time.perf_counter() - t0
+            check(host == blobs[fmt],
+                  f"filter-main ({fmt}): the card's bytes != the host lane's")
+        c = read_counts()
+        check(c["sha256_fp"] == c["bloom_scatter"] == 0,
+              "filter-main: the host lane launched a kernel")
+    finally:
+        if prev is None:
+            os.environ.pop("CTMR_FILTER_DEVICE", None)
+        else:
+            os.environ["CTMR_FILTER_DEVICE"] = prev
+    for fmt in blobs:
+        t0 = time.perf_counter()
+        ref = build_artifact(oracle, fp_rate=FILTER_FP, fmt=fmt,
+                             device=device).to_bytes()
+        oracle_s[fmt] = time.perf_counter() - t0
+        check(ref == blobs[fmt],
+              f"filter-main ({fmt}): != build_artifact over the oracle's sets")
+    t0 = time.perf_counter()
+    r = TorchAggregator(capacity=1 << 10, device="cpu")
+    r.load_checkpoint(state)
+    restore_s = time.perf_counter() - t0
+    check(r.filter_capture == agg.filter_capture,
+          "filter-main: the ck01 restored on the CPU has another capture")
+    for fmt in blobs:
+        check(build_from_aggregator(r, fp_rate=FILTER_FP, fmt=fmt,
+                                    device=device).to_bytes() == blobs[fmt],
+              f"filter-main ({fmt}): the CPU-restored rebuild differs")
+    del r
+    queries = {}
+    for fmt, blob in blobs.items():
+        art = FilterArtifact.from_bytes(blob)
+        check(art.fmt == fmt and len(art.groups) == len(oracle),
+              f"filter-main ({fmt}): {len(art.groups)} groups, want "
+              f"{len(oracle)}")
+        t0 = time.perf_counter()
+        for (iss, hour), serials in sorted(oracle.items()):
+            g = art.group_for(iss, hour)
+            check(g is not None and g.n == len(serials)
+                  and bool(art.query_group(g, sorted(serials),
+                                           device=device).all()),
+                  f"filter-main ({fmt}): a captured serial answers unknown")
+        member_s = time.perf_counter() - t0
+        ghosts = _ghost_rate(art, stream, device, seed + 12)
+        check(ghosts["rate"] <= 2 * FILTER_FP,
+              f"filter-main ({fmt}): never-logged serials false-positive at "
+              f"{ghosts['rate']:.4f}, over twice {FILTER_FP}")
+        queries[fmt] = dict(ghosts, member_query_s=member_s,
+                            bits_per_entry=art.bits_per_entry(),
+                            max_layers=art.max_layers())
+    out = {
+        "batches": FILTER_BATCHES, "batch": n,
+        "serials": int(seen.sum()), "groups": len(oracle),
+        "batch_s_capture": batch_s,
+        "batch_s_no_capture": list(plain_batch_s[:FILTER_BATCHES]),
+        "capture_cost_s": sum(batch_s) - sum(plain_batch_s[:FILTER_BATCHES]),
+        "ingest_launches": ingest_launches, "save_s": save_s,
+        "build_s": build_s, "host_lane_s": host_s, "oracle_build_s": oracle_s,
+        "cpu_restore_s": restore_s, "launches": launches,
+        "artifact_bytes": {f: len(b) for f, b in blobs.items()},
+        "rss_before_save": rss0, "peak_rss": peak_rss, "queries": queries,
+    }
+    print(f"phase 12 (a) filter-main: {out['serials']} serials in "
+          f"{out['groups']} groups over {FILTER_BATCHES} batches of {n}; "
+          f"batches {sum(batch_s):.2f} s with capture, "
+          f"{sum(plain_batch_s[:FILTER_BATCHES]):.2f} s without (phase 5); "
+          f"save {save_s:.2f} s (fl02 build {build_s['fl02']:.2f} s), fl01 "
+          f"{build_s['fl01']:.2f} s; launches fl02 "
+          f"{launches['fl02']['sha256_fp']} K1 / "
+          f"{launches['fl02']['bloom_scatter']} K5, fl01 "
+          f"{launches['fl01']['sha256_fp']} K1 / "
+          f"{launches['fl01']['bloom_scatter']} K5; bytes fl02 "
+          f"{len(blobs['fl02'])} fl01 {len(blobs['fl01'])} == host lane == "
+          f"oracle build == CPU restore; every serial known; ghosts "
+          + ", ".join(f"{f} {q['rate']:.4f}" for f, q in queries.items())
+          + f"; peak RSS {peak_rss / 2**30:.2f} GiB", flush=True)
+    model = agg = None
+    torch.cuda.empty_cache()
+    return out
+
+
+def filter_fetch(device, part_url: str, stream: Stream, truth) -> dict:
+    """Phase 12 (b): ct-fetch with ``emitFilter`` over phase 11 (iii)'s
+    SERVE_FETCH_ENTRIES-entry log; ``ct-filter-torch build`` over its
+    ``aggStatePath`` reproduces the emitted file byte for byte,
+    ``inspect -json`` counts its groups, and ``ct-filter-torch query``
+    (a process) exits 0 on a logged serial and 1 on a never-logged one."""
+    import io
+
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch.cmd import ct_filter
+    from ct_mapreduce_tpu_torch.filter import read_artifact
+    from ct_mapreduce_tpu_torch.core.types import ExpDate
+    from ct_mapreduce_tpu_torch.telemetry import metrics
+
+    d = _filter_dir()
+    state = os.path.join(d, "fetch.npz")
+    fpath = state + ".filter"
+    rebuilt = os.path.join(d, "rebuilt.filter")
+    _fresh(state, fpath, rebuilt)
+    ini = _fetch_ini(os.path.join(d, "fetch.ini"), part_url, state, stream,
+                     {"emitFilter": "true"})
+    metrics.get_sink().reset()
+    run = fetch_run(device, "filter-fetch", ini)
+    run.pop("model")
+    check(metrics.get_sink().snapshot()["counters"].get(
+        "filter.emit_error", 0) == 0, "filter-fetch: the emission failed")
+    check(run["launches"]["bloom_scatter"] > 0,
+          "filter-fetch: K5 never ran")
+    oracle = _oracle_serials(stream, truth)
+    art = read_artifact(fpath)
+    check(sorted(((g.issuer, g.exp_hour), g.n) for g in art.groups.values())
+          == sorted((k, len(v)) for k, v in oracle.items()),
+          "filter-fetch: the artifact's groups differ from the oracle's")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    check(ct_filter.main(["build", "-state", state, "-out", rebuilt],
+                         out=buf, device=device) == 0,
+          "filter-fetch: ct-filter build failed")
+    cli_build_s = time.perf_counter() - t0
+    with open(fpath, "rb") as a, open(rebuilt, "rb") as b:
+        emitted = a.read()
+        check(emitted == b.read(),
+              "filter-fetch: ct-filter build != the emitted artifact")
+    buf = io.StringIO()
+    check(ct_filter.main(["inspect", "-artifact", fpath, "-json"],
+                         out=buf) == 0, "filter-fetch: inspect failed")
+    check(json.loads(buf.getvalue())["groups"] == len(art.groups)
+          == len(oracle), "filter-fetch: inspect -json counts other groups")
+    (iss, hour), serials = sorted(oracle.items())[0]
+    known = sorted(serials)[0]
+    ghost = b"\x7f" + known  # one byte longer: never logged
+    check(ghost not in serials, "filter-fetch: the ghost serial was logged")
+    exits = {}
+    for name, sb, want in (("known", known, 0), ("ghost", ghost, 1)):
+        res = subprocess.run(
+            [sys.executable, "-m", "ct_mapreduce_tpu_torch.cmd.ct_filter",
+             "query", "-artifact", fpath, "-issuer", iss, "-expDate",
+             ExpDate.from_unix_hour(hour).id(), "-serial", sb.hex()],
+            cwd=HERE, capture_output=True, text=True, timeout=300)
+        if name == "ghost" and res.returncode == 0:
+            # A false positive is allowed; a different ghost must miss.
+            ghost = b"\x7e\x01" + known
+            res = subprocess.run(
+                [sys.executable, "-m", "ct_mapreduce_tpu_torch.cmd.ct_filter",
+                 "query", "-artifact", fpath, "-issuer", iss, "-expDate",
+                 ExpDate.from_unix_hour(hour).id(), "-serial", ghost.hex()],
+                cwd=HERE, capture_output=True, text=True, timeout=300)
+        check(res.returncode == want,
+              f"ct-filter-torch query ({name}): exit {res.returncode}, want "
+              f"{want}: {res.stderr[-400:]}")
+        exits[name] = res.returncode
+    out = dict(run, serials=int(np.count_nonzero(truth)),
+               groups=len(art.groups), artifact_bytes=len(emitted),
+               cli_build_s=cli_build_s, query_exits=exits)
+    print(f"phase 12 (b) filter-fetch: ct-fetch with emitFilter over "
+          f"{run['entries']} entries in {run['wall_s']:.2f} s; "
+          f"{out['serials']} serials in {out['groups']} groups, "
+          f"{len(emitted)} B; ct-filter-torch build == emitted "
+          f"({cli_build_s:.2f} s), inspect -json groups == "
+          f"{len(art.groups)}, query exits 0 / 1; launches "
+          f"{run['launches']['sha256_fp']} K1, {run['launches']['der_walk']} "
+          f"K3, {run['launches']['bloom_scatter']} K5", flush=True)
+    return out
+
+
+def _scale_sources(seed: int):
+    """(c)'s corpus: SCALE_SERIALS serials in SCALE_ISSUERS x SCALE_HOURS
+    groups of Zipf(1.1) sizes, as PackedGroupSources whose providers make
+    each chunk from the group's own seed: lengths 8..20, random bytes,
+    the last 4 a big-endian counter, so serials are unique in a group."""
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch.core.packing import MAX_SERIAL_BYTES
+    from ct_mapreduce_tpu_torch.filter import PackedGroupSource
+    from ct_mapreduce_tpu_torch.utils import syncerts
+
+    groups = SCALE_ISSUERS * SCALE_HOURS
+    rng = np.random.default_rng(seed + 1200)
+    sizes = rng.multinomial(SCALE_SERIALS - groups,
+                            syncerts.zipf_weights(groups, 1.1)) + 1
+    rng.shuffle(sizes)
+    col = np.arange(MAX_SERIAL_BYTES)[None, :]
+
+    def provider(chunk_size, g, n):
+        r = np.random.default_rng([seed, g])
+        for s0 in range(0, n, chunk_size):
+            c = min(chunk_size, n - s0)
+            lens = r.integers(8, 21, c)
+            mat = r.integers(0, 256, (c, MAX_SERIAL_BYTES), dtype=np.uint8)
+            ctr = np.arange(s0, s0 + c, dtype=np.int64)
+            rows = np.arange(c)
+            for b in range(4):
+                mat[rows, lens - 1 - b] = (ctr >> (8 * b)) & 0xFF
+            mat[col >= lens[:, None]] = 0
+            yield lens, mat, []
+
+    sources = []
+    for g in range(groups):
+        iss, hour = divmod(g, SCALE_HOURS)
+        n = int(sizes[g])
+        sources.append(PackedGroupSource(
+            f"scale-issuer-{iss:02d}", 500_000 + 24 * hour, n,
+            lambda cs, g=g, n=n: provider(cs, g, n)))
+    return sources
+
+
+def _members_on_card(art, sources, device) -> int:
+    """Members among every source's keys (K1 again, after the build's
+    counts were read) by the probe arithmetic in plain torch on the card:
+    every key of a one-layer fl02 group must hit all its k bits."""
+    import torch
+
+    from ct_mapreduce_tpu_torch.filter import stream as fst
+    from ct_mapreduce_tpu_torch.filter.cascade import keys_tensor
+    from ct_mapreduce_tpu_torch.ops.bloom import M32
+
+    hits = 0
+    for src in sources:
+        g = art.group_for(src.issuer, src.exp_hour)
+        layer = g.cascade.layers[0]
+        words = torch.from_numpy(layer.words.view("<i4")).to(device)
+        w = words.to(torch.int64) & M32
+        k = keys_tensor(fst.collect_keys(src, 0, SCALE_CHUNK, use_device=True,
+                                         device=device), device)
+        k = k.to(torch.int64) & M32
+        # Layer 0: the layer mixes (0 * _GOLD, 0 * _MIX) are 0.
+        a = (k[:, 0] + k[:, 2]) & M32
+        b = ((k[:, 1] + k[:, 3]) & M32) | 1
+        ok = torch.ones_like(a, dtype=torch.bool)
+        for i in range(layer.k):
+            pos = ((a + i * b) & M32) % layer.m
+            ok &= ((w[pos >> 5] >> (pos & 31)) & 1).bool()
+        hits += int(ok.sum())
+    return hits
+
+
+def filter_scale(device, seed: int) -> dict:
+    """Phase 12 (c): a streamed fl02 build through ``PackedGroupSource`` at
+    SCALE_SERIALS serials in 1,024 groups on the card (the device lane
+    forced, so every block hashes through K1 and every segment scatters
+    through K5). Every K5 launch is checked on its dispatch against the
+    plain version on a copy of its arena; each K1 and K5 launch is
+    timed with CUDA events (keys/s); every key is a member."""
+    import torch
+
+    from ct_mapreduce_tpu_torch.filter import build_artifact_from_sources
+    from ct_mapreduce_tpu_torch.filter import stream as fst
+    from ct_mapreduce_tpu_torch.ops import bloom, sha256
+
+    sources = _scale_sources(seed)
+    timed = {"k1": [0.0, 0], "k5": [0.0, 0]}
+    orig_fp, orig_scatter = sha256.sha256_fingerprint64, bloom.bloom_scatter
+
+    def events(name, fn, lanes):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        timed[name][0] += start.elapsed_time(end) / 1e3
+        timed[name][1] += lanes
+        return out
+
+    dispatches = []
+
+    def fp(ii, eh, ser, ln):
+        return events("k1", lambda: orig_fp(ii, eh, ser, ln), int(ln.shape[0]))
+
+    def scatter(words, keys, gid, offs, ms, ks, layer):
+        want = bloom.bloom_scatter_plain(words.clone(), keys, gid, offs, ms,
+                                         ks, layer)
+        got = events("k5", lambda: orig_scatter(words, keys, gid, offs, ms,
+                                                ks, layer),
+                     int(keys.shape[0]))
+        check(torch.equal(got, want), f"filter-scale: K5 != plain on "
+              f"dispatch {len(dispatches)} ({int(keys.shape[0])} lanes)")
+        dispatches.append(int(keys.shape[0]))
+        return got
+
+    sha256.sha256_fingerprint64, bloom.bloom_scatter = fp, scatter
+    reset_counts()
+    rss0 = fst._rss_bytes()
+    t0 = time.perf_counter()
+    try:
+        art = build_artifact_from_sources(
+            sources, fp_rate=FILTER_FP, use_device=True, fmt="fl02",
+            stream_chunk=SCALE_CHUNK, device=device)
+    finally:
+        sha256.sha256_fingerprint64, bloom.bloom_scatter = orig_fp, orig_scatter
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check(launches["sha256_fp"] > 0 and launches["bloom_scatter"] ==
+          len(dispatches) > 0, "filter-scale: K1 or K5 never ran")
+    check(art.n_serials == SCALE_SERIALS
+          and len(art.groups) == len(sources),
+          f"filter-scale: {art.n_serials} serials in {len(art.groups)} groups")
+    t0 = time.perf_counter()
+    members = _members_on_card(art, sources, device)
+    member_s = time.perf_counter() - t0
+    check(members == SCALE_SERIALS,
+          f"filter-scale: {SCALE_SERIALS - members} keys are not members")
+    out = {"serials": SCALE_SERIALS, "groups": len(art.groups),
+           "wall_s": wall, "launches": launches, "dispatches": dispatches,
+           "k1_s": timed["k1"][0], "k5_s": timed["k5"][0],
+           "k1_keys_per_s": timed["k1"][1] / timed["k1"][0],
+           "k5_keys_per_s": timed["k5"][1] / timed["k5"][0],
+           "artifact_bytes": len(art.to_bytes()),
+           "bits_per_entry": art.bits_per_entry(), "member_check_s": member_s,
+           "rss_before": rss0, "peak_rss": fst._rss_bytes()}
+    print(f"phase 12 (c) filter-scale: {SCALE_SERIALS} serials in "
+          f"{out['groups']} groups, fl02 {out['artifact_bytes']} B "
+          f"({out['bits_per_entry']:.2f} bits/serial) in {wall:.1f} s "
+          f"(plain K5 checks included); K1 {out['k1_keys_per_s']:.3e} keys/s "
+          f"over {launches['sha256_fp']} launches, K5 "
+          f"{out['k5_keys_per_s']:.3e} keys/s over {len(dispatches)} "
+          f"dispatches, each == plain; every key a member "
+          f"({member_s:.1f} s)", flush=True)
+    return out
+
+
+def filter_phase(device, seed: int, plain_batch_s: list, part_url: str,
+                 fetch_truth) -> dict:
+    """Phase 12: (0) K5 against its plain version; (a) filter-main; (b)
+    filter-fetch; (c) filter-scale."""
+    import torch
+
+    out = {"k5": bloom_check(device, seed)}
+    out["main"] = filter_main(device, seed, plain_batch_s)
+    out["fetch"] = filter_fetch(device, part_url, *fetch_truth)
+    torch.cuda.empty_cache()
+    out["scale"] = filter_scale(device, seed)
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
                  preparsed: dict, sinks: dict, fetch: dict,
-                 extra_paths: dict) -> dict:
+                 extra_paths: dict, k5: dict) -> dict:
     """The ``{"kernels": [...]}`` record: every kernel of the port with
     its launches on each main path and this run's measurements."""
     from ct_mapreduce_tpu_torch.tools import mosaic_probe as mp
@@ -2496,6 +3101,20 @@ def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
         "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None,
+    }, {
+        # The fused form (the one the grouped build launches); the
+        # one-layer form's numbers ride beside it.
+        "name": "bloom_scatter", "route": "cuda",
+        "source": "ct_mapreduce_tpu_torch/csrc/bloom_scatter.cu",
+        "replaces": "ct_mapreduce_tpu/filter/fused.py:122",
+        "launches": paths["filter_main"]["bloom_scatter"],
+        "launches_by_path": by_path("bloom_scatter"),
+        "max_abs_err": max(f["max_abs_err"] for f in k5.values()),
+        "ms": k5["fused"]["kernel_ms"], "plain_ms": k5["fused"]["plain_ms"],
+        "bound_ms": k5["fused"]["bound_ms"],
+        "bound_by": k5["fused"]["bound_by"], "library_ms": None,
+        "one_layer": {key: k5["layer"][key] for key in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
     }]
     for i, st in enumerate(probe["stages"]):
         rows.append({
@@ -2508,7 +3127,7 @@ def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": st["library_ms"],
         })
-    check(len(rows) == 2 + len(mp.STAGES), "a kernel is missing from the line")
+    check(len(rows) == 3 + len(mp.STAGES), "a kernel is missing from the line")
     return {"kernels": rows}
 
 
@@ -2634,9 +3253,13 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
                         open_truth, logs.wait_ready()[2], fetch_truth,
                         args.seed)
     del restored, open_model
-    logs.stop()
     torch.cuda.empty_cache()
     lap("11")
+    filt = filter_phase(device, args.seed,
+                        lanes["walker"]["ingest_s_per_batch"],
+                        logs.wait_ready()[2], fetch_truth)
+    logs.stop()
+    lap("12")
     prof = None
     if args.profile:
         torch.cuda.empty_cache()
@@ -2650,7 +3273,7 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
                "walker_kernel": k3, "probe": probe, "lanes": lanes,
                "open_layout": opened, "big_table": big, "sinks": sinks,
                "checkpoints": ckpts, "fetch": fetch, "serve": serve,
-               "profile": prof, "sass": sass, "phase_s": phase_s,
+               "filter": filt, "profile": prof, "sass": sass, "phase_s": phase_s,
                "wall_s": time.perf_counter() - t_start}
     print("phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items())
@@ -2663,10 +3286,14 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
     extra_paths = {"walker_open": opened["lanes"]["walker-open"]["launches"],
                    "preparsed_open":
                        opened["lanes"]["preparsed-open"]["launches"],
-                   "serve_fetch": serve["fetch"]["launches"]}
+                   "serve_fetch": serve["fetch"]["launches"],
+                   "filter_main": filt["main"]["launches"]["fl02"],
+                   "filter_main_fl01": filt["main"]["launches"]["fl01"],
+                   "filter_fetch": filt["fetch"]["launches"],
+                   "filter_scale": filt["scale"]["launches"]}
     print(json.dumps(kernels_line(k1, k3, probe, lanes["walker"],
                                   lanes["preparsed"], sinks, fetch,
-                                  extra_paths)),
+                                  extra_paths, filt["k5"])),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,9 +33,17 @@ other's. The fold paths feed the same dirty log (``_ckpt_record_row``,
 fold, a grow, the segment budget), after which the next save writes a
 full base. Table rows leave the card in one copy under ``_table_lock``.
 
-Left out so far: filter capture (a checkpoint that carries one raises,
-ROADMAP item 10) and signature verification (item 11; its per-issuer
-vectors ride the checkpoints as zeros).
+Filter capture (``enable_filter_capture``) keeps every first-seen
+serial's bytes per (issuer index, exp hour), at the same four fold
+sites as the JAX package (the walker fold ``_consume_out``, which staged
+envelopes also go through, the pre-parsed fold ``_fold_preparsed``, the
+host lane ``_host_dedup`` and ck02 segment replay), rides ck01 files as
+``filter_keys``/``filter_vals``/``filter_hashes`` and ck02 segments as
+``captureTokens``, and compiles into a filter artifact after every save
+(``configure_filter_emission``, :mod:`..filter`).
+
+Left out so far: signature verification (ROADMAP item 11; its
+per-issuer vectors ride the checkpoints as zeros).
 """
 
 from __future__ import annotations
@@ -61,6 +69,8 @@ from ct_mapreduce_tpu_torch.core import der as hostder
 from ct_mapreduce_tpu_torch.core import packing
 from ct_mapreduce_tpu_torch.core.types import ExpDate, Issuer
 from ct_mapreduce_tpu_torch.device import resolve_device
+from ct_mapreduce_tpu_torch.filter.cache import content_token, serial_hash
+from ct_mapreduce_tpu_torch.filter.spill import SpillCaptureRing
 from ct_mapreduce_tpu_torch.ops import buckettable, hashtable, pipeline
 from ct_mapreduce_tpu_torch.telemetry import trace
 from ct_mapreduce_tpu_torch.telemetry.metrics import incr_counter, set_gauge
@@ -363,6 +373,10 @@ def ckpt_state_digest(agg: "TorchAggregator") -> str:
         h.update(f"d{i};".encode())
         for dn in sorted(dns):
             h.update(dn.encode())
+    tokens = agg.capture_content_hashes()
+    if tokens is not None:
+        for (i, e), v in sorted(tokens.items()):
+            h.update(f"t{i},{e},{v:032x};".encode())
     return h.hexdigest()
 
 
@@ -433,6 +447,30 @@ class TorchAggregator:
         self._device_written = False
         # Set False by a caller that never needs per-entry serial bytes.
         self.want_serials = True
+        # Filter capture: every first-seen serial's BYTES per
+        # (issuer_idx, exp_hour), the material of a filter artifact (the
+        # table keeps only fingerprints). None = off: no cost, and
+        # checkpoints without the capture fields.
+        self.filter_capture: Optional[dict[tuple[int, int],
+                                           set[bytes]]] = None
+        # Exact per-group XOR content hashes of the dict capture (the
+        # CTMRFL02 dirty-group tokens), kept with the capture; None when
+        # capture is off, the spill ring owns them, or exactness was
+        # lost. A None only costs a token recomputation.
+        self.filter_capture_hashes: Optional[dict[tuple[int, int],
+                                                  int]] = None
+        # Filter emission after each save (configure_filter_emission):
+        # an empty path writes no artifact.
+        self.emit_filter_path = ""
+        self.filter_fp_rate = 0.01
+        self.filter_fmt = ""  # "" = the CTMR_FILTER_FORMAT default
+        self.filter_stream_chunk = 0  # 0 = stream.DEFAULT_STREAM_CHUNK
+        self.filter_fused_lanes = 0  # 0 = fused.DEFAULT_MAX_LANES
+        # Clean groups' cascades carry over between emissions (fl02).
+        self._filter_build_cache = None
+        # Serializes emissions, which run outside _save_lock (the build
+        # cache is not thread-safe).
+        self._emit_lock = threading.Lock()
         self.set_cn_prefixes(cn_prefixes)
         self.metrics: dict[str, int] = {
             "inserted": 0, "known": 0, "filtered_ca": 0, "filtered_expired": 0,
@@ -631,6 +669,122 @@ class TorchAggregator:
         return out
 
     # -- incremental checkpoints (CTMRCK02, agg/ckpt.py) -----------------
+    # -- filter capture ------------------------------------------------
+    def enable_filter_capture(self, spill_dir: str = "",
+                              spill_mem_bytes: int = 0) -> None:
+        """Start keeping first-seen serial bytes per (issuer_idx,
+        exp_hour) for filter compilation. Seeds from the host-lane sets
+        (their bytes survive checkpoints); device-lane serials ingested
+        before this are fingerprints only and cannot be recovered, which
+        is said once on stderr. Forces ``want_serials``.
+
+        With ``spill_dir`` (``filterCaptureSpillDir``) the capture is a
+        :class:`SpillCaptureRing`: its memory bounded by
+        ``spill_mem_bytes``, the rest spilled to segment files, its
+        ``items()`` the dict's. An existing dict capture (a restored
+        checkpoint) is folded into the ring."""
+        if spill_dir and not isinstance(self.filter_capture,
+                                        SpillCaptureRing):
+            ring = SpillCaptureRing(spill_dir, mem_bytes=spill_mem_bytes)
+            seed = (self.filter_capture if self.filter_capture is not None
+                    else self.host_serials)
+            for key, serials in sorted(seed.items()):
+                ring.update(key, sorted(serials))
+            self.filter_capture = ring
+            # The ring keeps its own content hashes from here on.
+            self.filter_capture_hashes = None
+        if self.filter_capture is None:
+            self.filter_capture = {
+                key: set(serials)
+                for key, serials in self.host_serials.items()}
+            self.filter_capture_hashes = {
+                key: content_token(serials)[1]
+                for key, serials in self.filter_capture.items()}
+            if self._device_written and self._table_fill_exact() > 0:
+                print("filter capture enabled on a warm table: device-lane "
+                      "serials ingested before this point are fingerprints "
+                      "only and will be missing from emitted filters",
+                      file=sys.stderr)
+        self.want_serials = True
+        # Segments carry capture additions only: the seeding above is
+        # out of band, so the next save must write a full base.
+        self._ckpt_mark_dirty_lost("capture reconfigured")
+
+    def configure_filter_emission(self, path: str, fp_rate: float = 0.01,
+                                  spill_dir: str = "",
+                                  spill_mem_bytes: int = 0, fmt: str = "",
+                                  stream_chunk: int = 0,
+                                  fused_lanes: int = 0) -> None:
+        """Write a filter artifact to ``path`` after every checkpoint
+        save, compiled from the capture at the target FP rate on this
+        aggregator's device. ``fmt`` picks the format ("" → the
+        CTMR_FILTER_FORMAT default); ``stream_chunk`` and
+        ``fused_lanes`` shape the build (0 = defaults) and change no
+        bytes."""
+        self.emit_filter_path = path
+        if fp_rate > 0:
+            self.filter_fp_rate = float(fp_rate)
+        self.filter_fmt = fmt or ""
+        self.filter_stream_chunk = int(stream_chunk or 0)
+        self.filter_fused_lanes = int(fused_lanes or 0)
+        self.enable_filter_capture(spill_dir=spill_dir,
+                                   spill_mem_bytes=spill_mem_bytes)
+
+    def _capture_serial(self, issuer_idx: int, exp_hour: int,
+                        serial: bytes) -> None:
+        """Record one first-seen serial (the fold paths call this under
+        the fold lock; set semantics absorb cross-domain repeats)."""
+        cap = self.filter_capture
+        if cap is None:
+            return
+        if isinstance(cap, SpillCaptureRing):
+            cap.add((issuer_idx, exp_hour), serial)
+            return
+        key = (issuer_idx, exp_hour)
+        s = cap.setdefault(key, set())
+        if serial not in s:
+            s.add(serial)
+            h = self.filter_capture_hashes
+            if h is not None:
+                h[key] = h.get(key, 0) ^ serial_hash(serial)
+
+    def capture_content_hashes(self) -> Optional[dict]:
+        """Exact per-(issuer_idx, expHour) XOR content hashes of the
+        capture, or None when there are none (capture off, a spilled
+        ring, a restore that lost them). Callers hold the fold lock."""
+        cap = self.filter_capture
+        if cap is None:
+            return None
+        if isinstance(cap, SpillCaptureRing):
+            return cap.content_hashes()
+        if self.filter_capture_hashes is None:
+            return None
+        return dict(self.filter_capture_hashes)
+
+    def _emit_filter(self) -> None:
+        """Compile the capture into the artifact (:mod:`..filter`) and
+        write it atomically beside the checkpoint. A failed emission
+        must not poison the checkpoint that already landed: it is
+        counted as ``filter.emit_error`` and reported, and the next save
+        retries."""
+        from ct_mapreduce_tpu_torch.filter import artifact as fartifact
+        from ct_mapreduce_tpu_torch.filter.cache import GroupBuildCache
+
+        try:
+            if self._filter_build_cache is None:
+                self._filter_build_cache = GroupBuildCache()
+            art = fartifact.build_from_aggregator(
+                self, fp_rate=self.filter_fp_rate,
+                fmt=self.filter_fmt or None,
+                cache=self._filter_build_cache,
+                stream_chunk=self.filter_stream_chunk,
+                fused_lanes=self.filter_fused_lanes)
+            fartifact.write_artifact(self.emit_filter_path, art.to_bytes())
+        except Exception as err:
+            incr_counter("filter", "emit_error")
+            print(f"filter emission failed ({self.emit_filter_path}): "
+                  f"{type(err).__name__}: {err}", file=sys.stderr)
+
     def configure_checkpointing(self, mode: str = "", max_chain: int = 0,
                                 segment_budget_mb: int = 0) -> None:
         """Pin the checkpoint knobs (the ``checkpointMode`` /
@@ -992,6 +1146,7 @@ class TorchAggregator:
                         self.issuer_totals[int(batch.issuer_idx[l_])] -= 1
                     else:
                         res.was_unknown[p_] = True
+                        self._capture_serial(key[0], key[1], sb)
         else:
             res.was_unknown[kp[wu[kl]]] = True
             if dev_inserted:
@@ -1243,6 +1398,7 @@ class TorchAggregator:
                         self.issuer_totals[int(plan.issuer_idx[p_])] -= 1
                     else:
                         res.was_unknown[p_] = True
+                        self._capture_serial(key[0], key[1], sb)
         else:
             res.was_unknown[wu] = True
             if dev_inserted:
@@ -1425,6 +1581,7 @@ class TorchAggregator:
             return False, False, eh, fields.serial
         bucket.add(fields.serial)
         self._ckpt_record_host(issuer_idx, eh, fields.serial)
+        self._capture_serial(issuer_idx, eh, fields.serial)
         self.metrics["inserted"] += 1
         if issuer_idx >= self.issuer_totals.shape[0]:
             # Registry-overflow issuers (idx >= MAX_ISSUERS) only ever
@@ -1521,6 +1678,12 @@ class TorchAggregator:
                         wrote_segment = self._save_segment(path, man)
             if not wrote_segment:
                 self._save_full(path, knobs, compacting=compacting)
+        # Emission runs outside the save lock (the checkpoint above is
+        # already durable): a long build must not block the next save.
+        # _emit_lock still serializes overlapping emissions.
+        if self.emit_filter_path:
+            with self._emit_lock:
+                self._emit_filter()
 
     def _save_full(self, path: str, knobs, compacting: bool = False) -> None:
         """One full ck01 base snapshot (+ a fresh manifest in ck02
@@ -1616,7 +1779,7 @@ class TorchAggregator:
                     f"recorded {len(rows)} rows, device inserted "
                     f"{self._ckpt_dev_inserted}")
                 return False
-            blob = self._ckpt_segment_blob()
+            blob = self._ckpt_segment_blob(rows, host_adds)
             shadow = self._ckpt_take_shadow()
             self._ckpt_clear_log()
         if not rows and not host_adds and not self._ckpt_blob_nonempty(blob):
@@ -1652,7 +1815,7 @@ class TorchAggregator:
         set_gauge("ckpt", "chain_length", value=float(seq))
         return True
 
-    def _ckpt_segment_blob(self) -> dict:
+    def _ckpt_segment_blob(self, rows, host_adds) -> dict:
         """The non-row diffs of this tick against the last durable
         shadow. Caller holds the fold lock (countAfter is cut at the
         same instant as the dirty log)."""
@@ -1679,7 +1842,7 @@ class TorchAggregator:
                     out.append([int(i), sorted(fresh)])
             return out
 
-        return {
+        blob = {
             "baseHour": int(self.base_hour),
             "countAfter": int(self._table_fill),
             "registryAdds": self.registry.ids_from(sh["registry_len"]),
@@ -1690,6 +1853,16 @@ class TorchAggregator:
             "crlAdds": set_adds(self.crl_sets, sh["crl"]),
             "dnAdds": set_adds(self.dn_sets, sh["dn"]),
         }
+        tokens = self.capture_content_hashes()
+        if tokens is not None:
+            # The content tokens of the groups this tick dirtied: a
+            # restore checks its replayed capture against them.
+            dirty = sorted({(int(i), int(e)) for i, e, _ in rows}
+                           | {(int(i), int(e)) for i, e, _ in host_adds})
+            blob["captureTokens"] = [
+                [i, e, format(tokens.get((i, e), 0), "032x")]
+                for i, e in dirty]
+        return blob
 
     @staticmethod
     def _ckpt_blob_nonempty(blob: dict) -> bool:
@@ -1712,6 +1885,26 @@ class TorchAggregator:
             count = np.asarray(np.int32(int(self.table.count)))
         slots = (rows if layout == "open"
                  else rows[:, : buckettable.SLOTS * 5].reshape(-1, 5))
+        extra = {}
+        if self.filter_capture is not None:
+            # The capture rides the checkpoint only when it is on (a
+            # capture-off file has none of these fields). The host
+            # lane's hex-joined encoding; sorted keys and serials.
+            f_items = sorted(
+                (idx, eh, b";".join(s.hex().encode() for s in sorted(ss)))
+                for (idx, eh), ss in self.filter_capture.items())
+            extra["filter_keys"] = np.array(
+                [(i, e) for i, e, _ in f_items], dtype=np.int64
+            ).reshape(-1, 2)
+            extra["filter_vals"] = np.array(
+                [v for _, _, v in f_items], dtype=object)
+            # Exact content hashes, row-aligned with filter_keys, when
+            # the capture has them (a restore then needs no rehash).
+            hashes = self.capture_content_hashes()
+            if hashes is not None:
+                extra["filter_hashes"] = np.array(
+                    [format(hashes.get((i, e), 0), "032x").encode()
+                     for i, e, _ in f_items], dtype=object)
         np.savez_compressed(
             fh,
             layout=np.array(layout),
@@ -1736,6 +1929,7 @@ class TorchAggregator:
                 {str(k): sorted(v) for k, v in sorted(self.dn_sets.items())}
             ).encode(), dtype=np.uint8),
             allow_pickle=True,
+            **extra,
         )
 
     def _restore_table(self, keys: np.ndarray, meta: np.ndarray,
@@ -1803,10 +1997,6 @@ class TorchAggregator:
             # (1). Checked before any state changes: formats the port
             # does not read yet are refused, never half-loaded.
             layout = str(z["layout"]) if "layout" in z else "open"
-            if "filter_keys" in z:
-                raise ValueError(
-                    f"checkpoint {path} carries a filter capture; filter "
-                    "capture is not ported yet (ROADMAP.md queue 1 item 10)")
             ckpt_shards = int(z["n_shards"]) if "n_shards" in z else 1
             count = np.asarray(z["count"])
             self._restore_table(np.asarray(z["keys"]), np.asarray(z["meta"]),
@@ -1832,6 +2022,29 @@ class TorchAggregator:
             self.dn_sets = {
                 int(k): set(v) for k, v in
                 json.loads(z["dn_sets"].tobytes().decode()).items()}
+            # A file without the capture fields turns capture off; a
+            # later enable_filter_capture() re-seeds from the host sets.
+            self.filter_capture = None
+            self.filter_capture_hashes = None
+            if "filter_keys" in z:
+                fkeys = z["filter_keys"].reshape(-1, 2)
+                cap: dict[tuple[int, int], set[bytes]] = {}
+                for (idx, eh), blob in zip(fkeys, z["filter_vals"]):
+                    cap[(int(idx), int(eh))] = {
+                        bytes.fromhex(h.decode())
+                        for h in blob.split(b";") if h}
+                self.filter_capture = cap
+                if "filter_hashes" in z:
+                    self.filter_capture_hashes = {
+                        (int(idx), int(eh)): int(hx.decode(), 16)
+                        for (idx, eh), hx in zip(fkeys, z["filter_hashes"])}
+                else:
+                    # The restored dict is the whole capture: recomputing
+                    # regains exact tracking for the rest of the run.
+                    self.filter_capture_hashes = {
+                        key: content_token(serials)[1]
+                        for key, serials in cap.items()}
+                self.want_serials = True
 
     def _ckpt_replay_segment(self, header, dev_rows, host_rows,
                              blob) -> None:
@@ -1841,10 +2054,6 @@ class TorchAggregator:
         if base_hour != self.base_hour:
             raise ckpt.CkptError(
                 f"segment baseHour {base_hour} != base {self.base_hour}")
-        if "captureTokens" in blob:
-            raise ValueError(
-                "checkpoint segment carries filter-capture tokens; filter "
-                "capture is not ported yet (ROADMAP.md queue 1 item 10)")
         # Registry first: replayed rows may name issuers the base
         # predates.
         for iid in blob.get("registryAdds", []):
@@ -1868,8 +2077,12 @@ class TorchAggregator:
                     f"segment replay overflowed {overflow} rows "
                     f"(base capacity {self.capacity})")
             self._device_written = True
+        for i_, e_, sb in dev_rows:
+            self._capture_serial(int(i_), int(e_), sb)
         for i_, e_, sb in host_rows:
-            self.host_serials.setdefault((int(i_), int(e_)), set()).add(sb)
+            key = (int(i_), int(e_))
+            self.host_serials.setdefault(key, set()).add(sb)
+            self._capture_serial(key[0], key[1], sb)
         for name, attr in (("issuerTotals", "issuer_totals"),
                            ("verifyVerified", "verify_verified"),
                            ("verifyFailed", "verify_failed")):
@@ -1878,14 +2091,23 @@ class TorchAggregator:
             self.crl_sets.setdefault(int(i), set()).update(urls)
         for i, names in blob.get("dnAdds", []):
             self.dn_sets.setdefault(int(i), set()).update(names)
-        # Self-check: the replayed table holds exactly the row count the
-        # writer saw at this tick.
+        # Self-checks: the replayed table holds exactly the row count the
+        # writer saw at this tick, and the capture groups hash to the
+        # writer's content tokens.
         self._table_fill = self._table_fill_exact()
         want = blob.get("countAfter")
         if want is not None and int(want) != self._table_fill:
             raise ckpt.CkptError(
                 f"segment replay count {self._table_fill} != "
                 f"recorded {want}")
+        tokens = self.capture_content_hashes()
+        if tokens is not None:
+            for i, e, hx in blob.get("captureTokens", []):
+                got = format(tokens.get((int(i), int(e)), 0), "032x")
+                if got != hx:
+                    raise ckpt.CkptError(
+                        f"capture content token mismatch for group "
+                        f"({i}, {e}) after replay")
 
     def _chain_insert(self, keys: np.ndarray, meta: np.ndarray) -> int:
         """Insert chain-replayed rows into the CURRENT table. The insert

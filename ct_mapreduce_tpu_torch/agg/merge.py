@@ -6,7 +6,9 @@ Each worker's own :meth:`drain` already resolves its internal
 host/device dedup overlap, so the fleet-level merge is the reduce-side
 union over those drained snapshots: per-(issuer, expDate) serial
 counts sum, per-issuer CRL/DN metadata and host-lane serial bytes
-set-union, verify verdict counts sum.
+set-union, verify verdict counts sum, and the workers' filter captures
+set-union into ``filter_serials``, the seed of the merged filter
+artifact (``filter/artifact.py::build_from_merged``).
 
 Honest limit (as in the JAX package): a certificate cross-logged into
 two logs owned by different workers counts once per owning worker.
@@ -17,9 +19,7 @@ named explicitly, instead of the JAX package's
 ``HostSnapshotAggregator``. A report needs no card, so the CPU here is
 the reader's chosen device, not a fallback. The reader takes the
 snapshots that class takes (either layout, ck02 chains on a bucket
-table) and refuses the two it refuses. The merged filter capture of
-the JAX module is not copied (filter capture is ROADMAP item 10; a
-checkpoint carrying one is refused).
+table) and refuses the two it refuses.
 """
 
 from __future__ import annotations
@@ -108,11 +108,20 @@ class MergedAggregate:
     ``storage-statistics`` reads from a single aggregator: ``drain()``
     (the merged snapshot), ``registry`` (union issuer indexing) and
     ``host_serials`` (worker-local indices remapped into it, serial
-    byte-sets unioned)."""
+    byte-sets unioned), plus the merged filter capture
+    (``filter_serials``) and the checkpoints that had none
+    (``capture_missing``)."""
 
     def __init__(self) -> None:
         self.registry = IssuerRegistry()
         self.host_serials: dict[tuple[int, int], set[bytes]] = {}
+        # The union of the workers' filter captures, remapped to the
+        # merged issuer indexing.
+        self.filter_serials: dict[tuple[int, int], set[bytes]] = {}
+        # Checkpoints folded without a capture: a filter built over them
+        # would silently miss their device-lane serials, so the builder
+        # refuses unless told otherwise.
+        self.capture_missing: list[str] = []
         self._snapshots: list[AggregateSnapshot] = []
         self.worker_paths: list[str] = []
 
@@ -130,6 +139,12 @@ class MergedAggregate:
         for (idx, eh), serials in sorted(agg.host_serials.items()):
             key = (remap[idx], eh)
             self.host_serials.setdefault(key, set()).update(serials)
+        if agg.filter_capture is None:
+            self.capture_missing.append(path)
+        else:
+            for (idx, eh), serials in sorted(agg.filter_capture.items()):
+                key = (remap[idx], eh)
+                self.filter_serials.setdefault(key, set()).update(serials)
 
     def drain(self) -> AggregateSnapshot:
         return merge_snapshots(self._snapshots)

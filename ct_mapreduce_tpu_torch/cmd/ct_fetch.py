@@ -15,6 +15,16 @@ the database facade, as the reference does. ``profileDir`` writes a
 ``torch.profiler`` trace of the run (the JAX package writes a
 ``jax.profiler`` one).
 
+``emitFilter`` compiles the aggregation state's per-(issuer, expDate)
+serial sets into a filter artifact (``filterPath``, by default
+``<aggStatePath>.filter``) after every checkpoint save, on the
+aggregator's device (K1 and K5 on the card); ``filterFpRate``,
+``filterFormat``, ``filterStreamChunk``, ``filterFusedLanes`` and the
+capture spill ring (``filterCaptureSpillDir``/``filterCaptureSpillMB``)
+resolve through :func:`..filter.resolve_filter` as in the JAX package.
+The fleet's merged filter and the serve plane's filter tier come with
+the fleet (item 12) and the distribution plane (item 15).
+
 ``queryPort`` starts the query plane (``serve/server.py``) over the
 live aggregator, on the aggregator's device: membership answers from
 pinned copies of the dedup table, ``/issuer``, ``/healthz`` and the
@@ -119,9 +129,6 @@ def refuse_unported(config: CTConfig) -> None:
         (bool(config.checkpoint_period
               or os.environ.get("CTMR_CHECKPOINT_PERIOD")),
          "checkpointPeriod (the fleet's checkpoint cadence)", "item 12"),
-        (bool(config.emit_filter
-              or os.environ.get("CTMR_EMIT_FILTER", "0") == "1"),
-         "emitFilter (filter emission)", "item 10"),
         (config.verify_signatures
          or os.environ.get("CTMR_VERIFY", "0") == "1",
          "verifySignatures (the verify lane)", "item 11"),
@@ -223,6 +230,27 @@ def main(argv: list[str] | None = None, device=None) -> int:
     run_stage = {"stage": "init"}
     sink, model = build_sink(config, device=device, database=database,
                              backend=_backend)
+
+    # Filter emission: the capture and the artifact after every save.
+    from ct_mapreduce_tpu_torch.filter import resolve_filter
+
+    fknobs = resolve_filter(
+        config.emit_filter or None, config.filter_path,
+        config.filter_fp_rate, state_path=config.agg_state_path,
+        spill_dir=config.filter_capture_spill_dir,
+        spill_mb=config.filter_capture_spill_mb,
+        stream_chunk=config.filter_stream_chunk,
+        fused_lanes=config.filter_fused_lanes,
+        fmt=config.filter_format)
+    if fknobs.emit and model is not None:
+        model.aggregator.configure_filter_emission(
+            fknobs.path, fknobs.fp_rate, spill_dir=fknobs.spill_dir,
+            spill_mem_bytes=fknobs.spill_mb << 20, fmt=fknobs.fmt,
+            stream_chunk=fknobs.stream_chunk,
+            fused_lanes=fknobs.fused_lanes)
+    elif fknobs.emit:
+        print("emitFilter ignored: filter emission needs backend = tpu",
+              file=sys.stderr)
 
     checkpoint_hook = None
     if model is not None and config.agg_state_path:

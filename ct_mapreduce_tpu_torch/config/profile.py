@@ -226,10 +226,27 @@ def nonzero_int(v: Any) -> bool:
         return False
 
 
+def nonempty_str(v: Any) -> bool:
+    return isinstance(v, str) and bool(v)
+
+
+def pos_float(v: Any) -> bool:
+    try:
+        return float(v) > 0
+    except (TypeError, ValueError):
+        return False
+
+
 def parse_bool_lenient(raw: str) -> bool:
     """The serve-plane convention: anything but an explicit false
     spelling is true."""
     return raw.strip().lower() not in ("0", "f", "false")
+
+
+def parse_bool_strict(raw: str) -> bool:
+    """The emit-style convention: only explicit true spellings are
+    true."""
+    return raw.strip().lower() in ("1", "t", "true")
 
 
 def any_set(_v: Any) -> bool:

@@ -295,10 +295,12 @@ class AggregatorSink:
         self.decode_workers = int(decode_workers) or None
         self.decode_threads = int(decode_threads) or None
         self._inflight: deque = deque()  # (pending, der_of)
-        # The per-entry serial bytes are needed for the PEM tree; without
-        # a backend only the cross-encoding guard reads them, and
-        # drain() keeps counts exact without them.
-        aggregator.want_serials = backend is not None
+        # The per-entry serial bytes are needed for the PEM tree and the
+        # filter capture; otherwise only the cross-encoding guard reads
+        # them, and drain() keeps counts exact without them.
+        aggregator.want_serials = (
+            backend is not None
+            or getattr(aggregator, "filter_capture", None) is not None)
         self.entries_in = 0
         if preparsed is None:
             preparsed = os.environ.get("CTMR_PREPARSED", "0") == "1"

@@ -31,10 +31,10 @@ copies of the table on the aggregator's device, host fallback).
 (and their ``CTMR_SERVE_*`` env equivalents) tune the tier.
 
 Not ported yet: the filter-first tier and the ``/filter*`` distribution
-routes, which need filter emission (ROADMAP item 10) and the
-distribution plane (item 15). ``filter_first`` (or
-``CTMR_SERVE_FILTER_FIRST``) raises a ``ValueError`` naming them, and
-the routes answer 501.
+routes, which need the distribution plane (ROADMAP item 15; filter
+emission itself is ported, :mod:`..filter`). ``filter_first`` (or
+``CTMR_SERVE_FILTER_FIRST``) raises a ``ValueError`` naming it, and the
+routes answer 501.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ from ct_mapreduce_tpu_torch.telemetry.metrics import incr_counter
 _log = logging.getLogger(__name__)
 
 _FILTER_UNPORTED = ("the filter-first tier and the /filter routes are not "
-                    "ported yet (ROADMAP.md queue 1 items 10 and 15)")
+                    "ported yet (ROADMAP.md queue 1 item 15)")
 
 
 _SERVE_KNOBS = (
@@ -112,7 +112,7 @@ class MembershipOracle:
     (host-NumPy fallback when a CPU view cannot pin, or the card is out
     of memory at pin time). The JAX module's
     filter-first tier (``filter_first``) is not ported: asking for it
-    raises a ``ValueError`` naming ROADMAP items 10 and 15."""
+    raises a ``ValueError`` naming ROADMAP item 15."""
 
     def __init__(
         self,
@@ -319,8 +319,7 @@ class QueryServer:
         """The filter distribution routes (``/filter``,
         ``/filter/manifest``, ``/filter/container/<kind>``,
         ``/filter/delta/<from>/<to>``, ``/filter/<issuer>/<expDate>``)
-        answer 501 until filter emission and its distribution plane are
-        ported."""
+        answer 501 until the distribution plane (item 15) is ported."""
         return 501, {"error": _FILTER_UNPORTED}
 
     def handle_healthz(self) -> tuple[int, dict]:

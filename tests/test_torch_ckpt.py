@@ -279,9 +279,9 @@ def test_segments_equal_across_packages(writers):
 
 
 def test_refused_formats(tmp_path, writers, monkeypatch):
-    """A filter capture is not ported: loading it raises, naming its
-    ROADMAP item, and changes nothing. An open-layout table is ported
-    (item 8): it loads, in its own layout, to the writer's digest."""
+    """Formats once refused now load: an open-layout table (item 8), in
+    its own layout, and a filter capture (item 10), to the writer's
+    digest, capture and content hashes included."""
     monkeypatch.setenv("CTMR_TABLE", "open")
     opened = HostSnapshotAggregator(capacity=CAP)
     opened.configure_checkpointing(mode="ck01")
@@ -298,10 +298,10 @@ def test_refused_formats(tmp_path, writers, monkeypatch):
     cap_path = str(tmp_path / "capture.npz")
     captured.save_checkpoint(cap_path)
     r = _port_agg()
-    before = ckpt_state_digest(r)
-    with pytest.raises(ValueError, match="item 10"):
-        r.load_checkpoint(cap_path)
-    assert ckpt_state_digest(r) == before
+    r.load_checkpoint(cap_path)
+    assert r.filter_capture == captured.filter_capture == {}
+    assert r.capture_content_hashes() == {}
+    assert ckpt_state_digest(r) == jharness.ckpt_state_digest(captured)
 
 
 # -- tests/test_ckpt.py on the port --------------------------------------

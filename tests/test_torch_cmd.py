@@ -21,7 +21,9 @@ masked), and ct-fetch with ``queryPort`` serves the run's serials.
 Size: ``tableBits`` 12, ``batchSize`` 64, logs of 48 entries, so the
 JAX side compiles each program once for the file. Report lines carry
 the cursor's wall-clock ``LastUpdateTime``, which is masked before the
-texts are compared. Tolerance: exact equality.
+texts are compared. With ``emitFilter`` both packages' ct-fetch write
+the same ``.filter`` bytes in either format, and both ``ct-filter``
+CLIs build, inspect and query alike. Tolerance: exact equality.
 """
 
 import dataclasses
@@ -308,7 +310,8 @@ def test_mesh_shape_on_the_port(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("directive,item", [
     ("numWorkers = 2", "item 12"), ("coordinatorBackend = solo", "item 12"),
-    ("checkpointPeriod = 1s", "item 12"), ("emitFilter = true", "item 10"),
+    ("checkpointPeriod = 1s", "item 12"),
+    ("emitFilter = true\nnumWorkers = 2", "item 12"),
     ("verifySignatures = true", "item 11"),
     ("metricsPort = 9464", "item 14"), ("fleetMetrics = true", "item 14"),
     ("sloMaxIngestLag = 10", "item 14")])
@@ -606,3 +609,96 @@ def test_ct_fetch_starts_query_plane(tmp_path, monkeypatch):
     assert [r["known"] for r in probed["query"]["results"]] == [True, False]
     with pytest.raises(OSError):
         QueryClient(f"127.0.0.1:{port}", timeout_s=2).healthz()
+
+
+_FILTER_ENV = ("CTMR_EMIT_FILTER", "CTMR_FILTER_PATH", "CTMR_FILTER_FP_RATE",
+               "CTMR_FILTER_FORMAT", "CTMR_FILTER_SPILL_DIR",
+               "CTMR_FILTER_STREAM_CHUNK", "CTMR_FILTER_FUSED_LANES")
+
+
+def _emit_run(pkg, d, monkeypatch, fmt):
+    """One ct-fetch of the shared log with emitFilter; returns the
+    checkpoint path and the artifact's bytes."""
+    for env in _FILTER_ENV:
+        monkeypatch.delenv(env, raising=False)
+    log = _log(pkg)
+    _patch(monkeypatch, pkg, log)
+    d.mkdir()
+    ini = d / "ct.ini"
+    ini.write_text(_ini(f"logList = {log.url}", BASE_INI,
+                        f"aggStatePath = {d / 'agg.npz'}",
+                        "emitFilter = true", f"filterFormat = {fmt}",
+                        "filterFpRate = 0.02", "filterStreamChunk = 16"))
+    assert _fetch(pkg, ["-config", str(ini)]) == 0
+    return str(d / "agg.npz"), (d / "agg.npz.filter").read_bytes()
+
+
+@pytest.mark.parametrize("fmt", ["fl01", "fl02"])
+def test_ct_fetch_emit_filter_matches_jax(tmp_path, monkeypatch, fmt):
+    """emitFilter through both packages' ct-fetch over one log: the
+    emitted ``<aggStatePath>.filter`` files are byte-identical, and every
+    first-seen serial answers known."""
+    from ct_mapreduce_tpu_torch.filter import FilterArtifact
+
+    blobs = {pkg: _emit_run(pkg, tmp_path / pkg, monkeypatch, fmt)[1]
+             for pkg in ("jax", "port")}
+    assert blobs["port"] == blobs["jax"]
+    art = FilterArtifact.from_bytes(blobs["port"])
+    assert art.fmt == fmt and art.n_serials == N_ENTRIES - N_DUPES
+
+
+def _filter_cli(pkg, argv, capsys):
+    from ct_mapreduce_tpu.cmd import ct_filter as jfilter
+    from ct_mapreduce_tpu_torch.cmd import ct_filter as tfilter
+
+    capsys.readouterr()
+    if pkg == "port":
+        rc = tfilter.main(["-device", "cpu"] + argv)
+    else:
+        rc = jfilter.main(argv)
+    return rc, capsys.readouterr().out
+
+
+def test_ct_filter_clis_match_jax(tmp_path, monkeypatch, capsys):
+    """Both ct-filter CLIs over the port's emitFilter checkpoint: build
+    writes the same bytes (those ct-fetch emitted), inspect and query
+    print the same text with the same exit codes (0 all known, 1 any
+    unknown, 2 on a usage error); the port's delta names item 15."""
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+    from ct_mapreduce_tpu_torch.core.types import ExpDate
+
+    state, emitted = _emit_run("port", tmp_path / "run", monkeypatch, "fl02")
+    agg = TorchAggregator(capacity=1 << 10, device="cpu")
+    agg.load_checkpoint(state)
+    (idx, eh), serials = sorted(agg.filter_capture.items())[0]
+    iss = agg.registry.issuer_at(idx).id()
+    exp_id = ExpDate.from_unix_hour(eh).id()
+    known = sorted(serials)[0].hex()
+    outs = {}
+    for pkg in ("jax", "port"):
+        out = str(tmp_path / f"{pkg}.filter")
+        rc, text = _filter_cli(pkg, ["build", "-state", state, "-out", out,
+                                     "-fpRate", "0.02"], capsys)
+        assert rc == 0 and json.loads(text)["groups"] == 2
+        with open(out, "rb") as fh:
+            assert fh.read() == emitted
+        runs = [["inspect", "-artifact", out],
+                ["inspect", "-artifact", out, "-json"],
+                ["query", "-artifact", out, "-issuer", iss,
+                 "-expDate", exp_id, "-serial", known],
+                ["query", "-artifact", out, "-issuer", "nobody",
+                 "-expDate", exp_id, "-serial", known],
+                ["query", "-artifact", out, "-issuer", iss,
+                 "-expDate", exp_id, "-serial", "zz"],
+                ["query", "-artifact", out, "-issuer", iss,
+                 "-expDate", exp_id]]
+        outs[pkg] = [_filter_cli(pkg, argv, capsys) for argv in runs]
+    assert outs["port"] == outs["jax"]
+    assert [rc for rc, _ in outs["port"]] == [0, 0, 0, 1, 2, 2]
+    assert json.loads(outs["port"][1][1])["groups"] == 2
+    from ct_mapreduce_tpu_torch.cmd import ct_filter as tfilter
+
+    capsys.readouterr()
+    assert tfilter.main(["delta", "-base", "a", "-target", "b",
+                         "-out", "c"]) == 2
+    assert "item 15" in capsys.readouterr().err

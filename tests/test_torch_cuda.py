@@ -1,5 +1,6 @@
 """The port on a CUDA card: each kernel (the fingerprint SHA-256, the
-DER walker, the ten probe stages) against its plain PyTorch version,
+DER walker, the ten probe stages, the Bloom bit-scatter K5) against its
+plain PyTorch version,
 and the tensor-op layers on the card (both dedup-table layouts, the
 query plane's pinned views) against the same code on the CPU.
 Tolerance: exact equality (integer arithmetic throughout).
@@ -677,3 +678,127 @@ def test_ct_fetch_on_card_matches_cpu(cuda, tmp_path):
             out[dev if dev == "cpu" else "cuda"] = (r.drain(), report, tree)
     assert out["cuda"] == out["cpu"]
     assert out["cpu"][0].total > 300 and len(out["cpu"][2]) > 300
+
+
+# -- K5, the Bloom bit-scatter of the filter build ------------------------
+
+def _bloom_host_words(keys, gid, offs, ms, ks, layer, total_bits):
+    """The probe bits by the host NumPy arithmetic of filter/cascade.py,
+    packed as the arena's little-endian words."""
+    from ct_mapreduce_tpu_torch.filter.cascade import _pack_words, _probe_np
+
+    bits = np.zeros((total_bits,), bool)
+    for g in range(len(ms)):
+        sel = gid == g
+        if sel.any():
+            pos = _probe_np(keys[sel], int(ms[g]), int(ks[g]), layer)
+            bits[int(offs[g]) + pos.reshape(-1)] = True
+    return _pack_words(bits)
+
+
+def _bloom_args(device, keys, gid, offs, ms, ks):
+    from ct_mapreduce_tpu_torch.filter.cascade import keys_tensor
+
+    return [keys_tensor(keys, device),
+            torch.from_numpy(gid.astype(np.int32)).to(device),
+            torch.from_numpy(np.asarray(offs, np.int64)).to(device),
+            torch.from_numpy(np.asarray(ms, np.int32)).to(device),
+            torch.from_numpy(np.asarray(ks, np.int32)).to(device)]
+
+
+def test_bloom_kernel_matches_plain_one_layer(cuda):
+    from ct_mapreduce_tpu_torch.filter.cascade import layer_params
+    from ct_mapreduce_tpu_torch.ops import bloom, bloom_cuda
+
+    n = 1 << 16
+    keys = np.random.default_rng(11).integers(0, 2**32, (n, 4), np.uint32)
+    m, k = layer_params(n, 0.01)
+    gid = np.zeros((n,), np.int32)
+    kt, gt, ot, mt, kst = _bloom_args(cuda, keys, gid, [0], [m], [k])
+    got = torch.zeros((m // 32,), dtype=torch.int32, device=cuda)
+    before = bloom_cuda.LAUNCHES
+    bloom.bloom_scatter(got, kt, gt, ot, mt, kst, 3)
+    torch.cuda.synchronize()
+    assert bloom_cuda.LAUNCHES == before + 1
+    want = torch.zeros_like(got)
+    bloom.bloom_scatter_plain(want, kt, gt, ot, mt, kst, 3)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(
+        got.cpu().numpy().view(np.uint32),
+        _bloom_host_words(keys, gid, [0], [m], [k], 3, m))
+
+
+def test_bloom_kernel_matches_plain_fused_high_offsets(cuda):
+    """Three groups in one arena of 2^31 - 32 bits: k 1 at offset 0, k
+    16 just above 2^30 bits, and a 2^20-bit group at the arena's end.
+    Word indices past 2^25 (bit offsets past 2^30) must land where the
+    host arithmetic puts them."""
+    from ct_mapreduce_tpu_torch.ops import bloom
+
+    total = (1 << 31) - 32
+    ms = np.array([1024, 4096, 1 << 20], np.int64)
+    ks = np.array([1, 16, 7], np.int64)
+    offs = np.array([0, (1 << 30) + 64, total - (1 << 20)], np.int64)
+    rng = np.random.default_rng(12)
+    n = (1 << 18) + 3
+    keys = rng.integers(0, 2**32, (n, 4), np.uint32)
+    gid = rng.integers(0, 3, n).astype(np.int32)
+    kt, gt, ot, mt, kst = _bloom_args(cuda, keys, gid, offs, ms, ks)
+    got = torch.zeros((total // 32,), dtype=torch.int32, device=cuda)
+    bloom.bloom_scatter(got, kt, gt, ot, mt, kst, 5)
+    torch.cuda.synchronize()
+    want = torch.zeros_like(got)
+    bloom.bloom_scatter_plain(want, kt, gt, ot, mt, kst, 5)
+    assert torch.equal(got, want)
+    host = _bloom_host_words(keys, gid, offs, ms, ks, 5, total)
+    got_np = got.cpu().numpy().view(np.uint32)
+    for g in range(3):
+        w0, w1 = int(offs[g]) // 32, int(offs[g] + ms[g]) // 32
+        np.testing.assert_array_equal(got_np[w0:w1], host[w0:w1])
+    assert int(np.count_nonzero(got_np)) == int(np.count_nonzero(host))
+
+
+def test_bloom_kernel_checks_its_inputs(cuda):
+    from ct_mapreduce_tpu_torch.ops import bloom_cuda
+
+    keys = np.zeros((8, 4), np.uint32)
+    kt, gt, ot, mt, kst = _bloom_args(
+        cuda, keys, np.zeros((8,), np.int32), [0], [64], [2])
+    words = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        bloom_cuda.scatter(words.cpu(), kt, gt, ot, mt, kst, 0)
+    with pytest.raises(TypeError):
+        bloom_cuda.scatter(words, kt.to(torch.int64), gt, ot, mt, kst, 0)
+    flat = torch.zeros((8 * 4 + 1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        bloom_cuda.scatter(words, flat[1:].view(8, 4), gt, ot, mt, kst, 0)
+
+
+@pytest.mark.parametrize("fmt", ["fl01", "fl02"])
+def test_filter_build_on_card_matches_cpu(cuda, fmt):
+    """A corpus past DEVICE_BUILD_MIN through the streamed, fused build:
+    K1 and K5 on the card give the bytes of the CPU's plain lane and of
+    the host NumPy lane, per group and fused."""
+    from ct_mapreduce_tpu_torch.filter import build_artifact
+    from ct_mapreduce_tpu_torch.ops import bloom_cuda
+
+    rng = np.random.default_rng(13)
+    state = {}
+    for g in range(6):
+        n = 6000 if g < 2 else int(rng.integers(10, 900))
+        serials = {rng.integers(0, 256, int(rng.integers(3, 21)),
+                                dtype=np.uint8).tobytes() for _ in range(n)}
+        if g == 1:
+            serials.add(b"\x07" * 60)  # the oversized host lane
+        state[(f"card-issuer-{g % 4}", 500_000 + 24 * g)] = serials
+    host = build_artifact(state, fp_rate=0.01, use_device=False,
+                          fmt=fmt).to_bytes()
+    k1, k5 = sha256_cuda.LAUNCHES, bloom_cuda.LAUNCHES
+    card = build_artifact(state, fp_rate=0.01, device=cuda, fmt=fmt,
+                          fused_lanes=4096).to_bytes()
+    assert sha256_cuda.LAUNCHES > k1 and bloom_cuda.LAUNCHES > k5
+    per_group = build_artifact(state, fp_rate=0.01, use_device=True,
+                               device=cuda, fmt=fmt, fused=False).to_bytes()
+    cpu = build_artifact(state, fp_rate=0.01, use_device=True,
+                         device="cpu", fmt=fmt).to_bytes()
+    assert card == host == per_group == cpu

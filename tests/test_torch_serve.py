@@ -472,9 +472,9 @@ def test_query_server_http_api(template):
             h = json.loads(resp.read())
         assert h["healthy"] and h["queue_cap"] > 0
         assert h["snapshot_epoch"] >= 1
-        # The filter routes are not ported yet: 501 naming their items.
+        # The filter routes are not ported yet: 501 naming their item.
         code, body = _get_error(f"{base}/filter")
-        assert code == 501 and "items 10 and 15" in body["error"]
+        assert code == 501 and "item 15" in body["error"]
         # A breach of the SLO hook flips /healthz to 503.
         srv.slo_check = lambda: ["serve_p99"]
         code, body = _get_error(f"{base}/healthz")
@@ -803,7 +803,7 @@ def test_resolve_serve_layering(monkeypatch):
     assert resolve_serve()[0] == 2
     # The filter-first tier is not ported: asking for it raises.
     monkeypatch.setenv("CTMR_SERVE_FILTER_FIRST", "1")
-    with pytest.raises(ValueError, match="items 10 and 15"):
+    with pytest.raises(ValueError, match="item 15"):
         MembershipOracle(_agg(capacity=1 << 10))
 
 

@@ -11,10 +11,10 @@ The port is ``ct_mapreduce_tpu_torch``, imported from this checkout.
 
 Phases, none of them caught — any failure exits non-zero:
 
-1. card: name and power limit (``nvidia-smi``), then the four kernel
+1. card: name and power limit (``nvidia-smi``), then the five kernel
    libraries (``nvcc`` for sm_90a: the fingerprint SHA-256 K1, the DER
-   walker K3, the ten probe stages, the Bloom bit-scatter K5) and the
-   native sidecar decoder
+   walker K3, the ten probe stages, the Bloom bit-scatter K5, the ECDSA
+   verify K6) and the native sidecar decoder
    (``g++``), all built from this checkout at once;
 2. K1 against its plain PyTorch version on 2^20 lanes (bit for bit), a
    sample against ``hashlib`` and the host fingerprint, both timed with
@@ -79,9 +79,9 @@ Phases, none of them caught — any failure exits non-zero:
    server in a process of its own (``utils/fakelog.py`` over
    ``http.server`` on 127.0.0.1, started first so it builds its log
    while phases 1-9 run) serves phase 8's stream as 1,000-entry
-   get-entries pages, 1,572,864 entries; ct-fetch downloads it over the
+   get-entries pages, 1,048,576 entries; ct-fetch downloads it over the
    client's urllib transport with ``backend = tpu``, ``batchSize``
-   65,536, ``tableBits`` 20 (it grows once), ``deviceQueueDepth`` 2 and
+   65,536, ``tableBits`` 19 (it grows once), ``deviceQueueDepth`` 2 and
    ``aggStatePath``: (a) unstaged, its ``storage-statistics -v 1`` and
    ``-v 2`` reports held to the oracle; (b) ``overlapWorkers`` 2 and (c)
    staged (``chunksPerDispatch`` 8, ``stagingDepth`` 2), each from an
@@ -125,13 +125,30 @@ Phases, none of them caught — any failure exits non-zero:
    fl02 build through ``PackedGroupSource`` at 2^24 serials in 1,024
    groups (64 issuers x 16 hours, Zipf(1.1) sizes, lengths 8..20), every
    K5 dispatch held to its plain version, K1 and K5 keys/s, every key a
-   member.
+   member;
+13. signature verification on the card: (0) K6 against its plain
+   version, verdict for verdict, for P-256 and P-384 at windows 8 and 0
+   on 1,024 lanes (the lane's ``verifyBatch``) and 2^16 (about 80% valid
+   signatures under 4 keys, the rest r or s 0 or n, s + 1, keys off the
+   curve or past p, wrong digests and padding lanes), a sample against
+   ``verify_ecdsa``, K6 timed with CUDA events beside its operations
+   bound (multiplies counted from its loops for these lanes); (a)
+   verify-sink: 131,072 entries whose leaves carry SCTs (two P-256 logs
+   ~70%, a P-384 log ~10%, an RSA log ~5%, an unregistered log ~5%, no
+   SCT ~10%, 1% of the ECDSA signatures corrupted) through the
+   ``AggregatorSink`` of ``build_sink`` with ``verifySignatures`` and
+   ``verifyLogKeys``: per-issuer verdicts equal the generator's truth,
+   the device lanes are the P-256/P-384 ones, the host lanes the RSA
+   ones, one Q-table miss a distinct ECDSA key; the same pages without
+   the lane for its cost; (b) verify-fetch: ct-fetch with the same
+   directives over that stream served on 127.0.0.1, and
+   ``storage-statistics -json`` totals equal to the truth.
 
 The kernels' launch counts are set to 0 just before each main path
 (walker, pre-parsed, both lanes on the open table, probe ladder, each
 sink configuration, each ct-fetch run, the served ct-fetch, the filter
 emission and fl01 build of 12 (a), the ct-fetch of 12 (b), the build of
-12 (c)) and read just after it. Prints the
+12 (c), 13 (a)'s sinks and 13 (b)'s ct-fetch) and read just after it. Prints the
 card line, a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -201,15 +218,16 @@ def card_line() -> str:
 
 def kernel_libs() -> dict:
     from ct_mapreduce_tpu_torch.ops import (
-        bloom_cuda, der_kernel_cuda, sha256_cuda)
+        bloom_cuda, der_kernel_cuda, ecdsa_cuda, sha256_cuda)
     from ct_mapreduce_tpu_torch.tools import mosaic_probe
 
     return {"k1": sha256_cuda.LIB, "k3": der_kernel_cuda.LIB,
-            "probe": mosaic_probe.LIB, "k5": bloom_cuda.LIB}
+            "probe": mosaic_probe.LIB, "k5": bloom_cuda.LIB,
+            "k6": ecdsa_cuda.LIB}
 
 
 def build_all() -> dict:
-    """Build the four kernel libraries and the native decoder at once,
+    """Build the five kernel libraries and the native decoder at once,
     one compiler process each."""
     from ct_mapreduce_tpu_torch import native
 
@@ -540,23 +558,25 @@ PROBE_REPLACES = (119, 127, 137, 147, 166, 183, 197, 223, 247, 361)
 
 def reset_counts() -> None:
     from ct_mapreduce_tpu_torch.ops import (
-        bloom_cuda, der_kernel_cuda, sha256_cuda)
+        bloom_cuda, der_kernel_cuda, ecdsa_cuda, sha256_cuda)
     from ct_mapreduce_tpu_torch.tools import mosaic_probe
 
     sha256_cuda.LAUNCHES = 0
     der_kernel_cuda.LAUNCHES = 0
     bloom_cuda.LAUNCHES = 0
+    ecdsa_cuda.LAUNCHES = 0
     mosaic_probe.LAUNCHES[:] = [0] * len(mosaic_probe.LAUNCHES)
 
 
 def read_counts() -> dict:
     from ct_mapreduce_tpu_torch.ops import (
-        bloom_cuda, der_kernel_cuda, sha256_cuda)
+        bloom_cuda, der_kernel_cuda, ecdsa_cuda, sha256_cuda)
     from ct_mapreduce_tpu_torch.tools import mosaic_probe
 
     return {"sha256_fp": sha256_cuda.LAUNCHES,
             "der_walk": der_kernel_cuda.LAUNCHES,
             "bloom_scatter": bloom_cuda.LAUNCHES,
+            "ecdsa_verify": ecdsa_cuda.LAUNCHES,
             "probe": list(mosaic_probe.LAUNCHES)}
 
 
@@ -1459,11 +1479,12 @@ def checkpoints(device, staged_model, staged_drain, seed: int) -> dict:
 # -- phase 10: ct-fetch on the card -------------------------------------
 
 FETCH_CHUNK = SINK_BATCH  # entries the log server makes a stream call
-# Entries in the served log: 24 chunks (32 before phase 12 came; cut so
+# Entries in the served log: 16 chunks (32 before phase 12 came, 24 before
+# phase 13; cut so
 # that the script stays near half its time limit). Each run over it
 # still grows its table once.
-FETCH_ENTRIES = 24 * (1 << 16)
-FETCH_TABLE_BITS = 20  # 1,572,864 slots: each run over the log grows once
+FETCH_ENTRIES = 16 * (1 << 16)
+FETCH_TABLE_BITS = 19  # 786,432 slots: each run over the log grows once
 # (d): the log at the first run, grown. Cut from (2^17, 2^18) so the
 # script, phases 5b and 11 included, stays near half its time limit: the
 # PEM tree's file writes are most of a (d) run.
@@ -3063,9 +3084,546 @@ def filter_phase(device, seed: int, plain_batch_s: list, part_url: str,
     return out
 
 
+# -- phase 13: signature verification on the card ------------------------
+
+K6_WIDTHS = (1 << 10, 1 << 16)  # verifyBatch's default; a card-filling batch
+K6_KEYS = 4  # log keys a curve in (0)'s corpus
+K6_NONCES = 8  # fixed nonces a key (see FixedNonceSigner)
+K6_HOST_SAMPLE = 16  # lanes of each curve held to verify_ecdsa
+VERIFY_ENTRIES = 1 << 17  # (a), (b): entries of the SCT stream
+VERIFY_BATCH = 1 << 16  # batchSize of (a) and (b)
+VERIFY_TABLE_BITS = 18
+VERIFY_RSA_DISTINCT = 64  # distinct RSA-signed leaves; replayed after
+# The stream's mix of (a), (b): each entry's embedded SCT.
+VERIFY_MIX = (("p256-a", 0.35), ("p256-b", 0.35), ("p384", 0.10),
+              ("rsa", 0.05), ("unregistered", 0.05), ("none", 0.10))
+# The same logs' P-256 SCTs alone: the lane's cost where K6 takes every
+# lane.
+VERIFY_MIX_P256 = (("p256-a", 0.5), ("p256-b", 0.5))
+VERIFY_CORRUPT = 0.01  # ECDSA signatures with a flipped bit
+VERIFY_ISSUERS = 4
+
+
+def _fixed_nonce_signer():
+    """A fixture log signer that signs fast: K6_NONCES fixed nonces, r =
+    (kG).x computed once a nonce, s = k⁻¹(z + r·d) mod n one product a
+    signature. Distinct digests still give distinct u1 and u2, so every
+    signature is a full verify. Not a secure signer."""
+    from ct_mapreduce_tpu_torch.verify import host
+    from ct_mapreduce_tpu_torch.verify import sct as sctlib
+
+    class FixedNonceSigner(sctlib.EcSctSigner):
+        def __init__(self, seed: str, curve=host.P256):
+            super().__init__(seed, curve)
+            self.nonces = []
+            for j in range(K6_NONCES):
+                k = host.derive_nonce(seed, bytes([j]), curve)
+                pt = host._point_mul(curve, k, (curve.gx, curve.gy))
+                self.nonces.append((pt[0] % curve.n, pow(k, -1, curve.n)))
+
+        def sign_rs(self, digest: bytes) -> tuple[int, int]:
+            r, kinv = self.nonces[digest[0] % K6_NONCES]
+            z = host.digest_to_z(self.curve, digest)
+            return r, kinv * (z + r * self.d) % self.curve.n
+
+        def sign(self, digest: bytes) -> bytes:
+            return sctlib._fixed_ecdsa_der(*self.sign_rs(digest),
+                                           self.curve.byte_len)
+
+    return FixedNonceSigner
+
+
+def k6_corpus(curve, n: int, seed: int):
+    """(0)'s lanes for ``curve``: about 80% valid signatures under
+    K6_KEYS keys, the rest mutated — r or s 0 or n, s + 1, a key off the
+    curve, qx >= p, a wrong digest — and padding lanes (valid false).
+    Returns the byte rows, valid, the key slot of each lane (0 for a key
+    that fails its checks), the keys, and per lane (kind, d, r, s, x,
+    y) as ints for the host checks and the bound's count."""
+    import numpy as np
+
+    signer_cls = _fixed_nonce_signer()
+    signers = [signer_cls(f"k6-{curve.name}-{k}", curve)
+               for k in range(K6_KEYS)]
+    rng = np.random.default_rng(seed + 1300 + curve.byte_len)
+    bl = curve.byte_len
+    digests = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    kinds = rng.choice(10, n, p=[0.80] + [0.2 / 9] * 9)
+    lanes = []
+    for i in range(n):
+        sg = signers[i % K6_KEYS]
+        dg = digests[i].tobytes()
+        r, s = sg.sign_rs(dg)
+        x, y = sg.q
+        k = int(kinds[i])
+        if k == 1:
+            r = 0
+        elif k == 2:
+            s = curve.n
+        elif k == 3:
+            s = (s + 1) % curve.n
+        elif k == 4:
+            y ^= 1  # off the curve
+        elif k == 5:
+            x = curve.p + (x & 0xFFFF)  # a coordinate >= p
+        elif k == 6:
+            dg = bytes([dg[0] ^ 0x80]) + dg[1:]  # the digest of another body
+        elif k == 7:
+            s = 0
+        elif k == 8:
+            r = curve.n
+        lanes.append((k, dg, r, s, x, y))
+    lim = 1 << (8 * bl)
+
+    def rows(vals):
+        return np.frombuffer(b"".join((v % lim).to_bytes(bl, "big")
+                                      for v in vals),
+                             np.uint8).reshape(n, bl).copy()
+
+    digest = np.zeros((n, bl), np.uint8)
+    digest[:, bl - 32:] = np.frombuffer(b"".join(ln[1] for ln in lanes),
+                                        np.uint8).reshape(n, 32)
+    out = [digest] + [rows([ln[j] for ln in lanes]) for j in (2, 3, 4, 5)]
+    valid = np.array([ln[0] != 9 for ln in lanes])  # kind 9: padding
+    key_idx = np.array([i % K6_KEYS if lanes[i][0] not in (4, 5) else 0
+                        for i in range(n)], np.int32)
+    return out, valid, key_idx, [sg.q for sg in signers], lanes
+
+
+def k6_bound(ops, window: int, lanes, valid) -> dict:
+    """K6's least time on these lanes: the multiply instructions that the
+    function it replaces needs for this data (ecdsa_cuda.products_needed:
+    the windowed ladder's two inversions are batch inversions there) over
+    the INT32 rate, against the bytes it must move (the five rows, valid,
+    key index and verdict of each lane, and the G table once) over the
+    HBM rate. The products K6's own loops execute (a Fermat inversion a
+    lane) are counted beside it."""
+    from ct_mapreduce_tpu_torch.verify import host
+
+    from ct_mapreduce_tpu_torch.ops import ecdsa_cuda
+
+    c = ops.curve
+    need = run = 0
+    any_ok = False
+    for (_k, dg, r, s, x, y), v in zip(lanes, valid):
+        lim = 1 << (8 * c.byte_len)
+        r, s, x, y = r % lim, s % lim, x % lim, y % lim
+        if not v or not (0 < r < c.n and 0 < s < c.n and x < c.p
+                         and y < c.p and (x or y)):
+            continue
+        on = (y * y - x * x * x + 3 * x - c.b) % c.p == 0
+        if not on:
+            need += ecdsa_cuda.products_needed(ops, window, False)
+            run += ecdsa_cuda.products(ops, window, False)
+            continue
+        w = pow(s, -1, c.n)
+        z = host.digest_to_z(c, dg) % c.n
+        u1, u2 = z * w % c.n, r * w % c.n
+        need += ecdsa_cuda.products_needed(ops, window, True, u1, u2)
+        run += ecdsa_cuda.products(ops, window, True, u1, u2)
+        any_ok = True
+    if any_ok:
+        need += ecdsa_cuda.batch_products_needed(ops, window)
+    muls = ecdsa_cuda.muls_per_product(ops)
+    ops_ms = need * muls / INT32_OPS_PER_S * 1e3
+    entries = 1 << window if window else 0
+    gtab_bytes = (ops.nbits // window) * entries * 2 * ops.byte_len if window else 0
+    byte_ms = (len(lanes) * (5 * ops.byte_len + 1 + 4 + 1) + gtab_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, byte_ms),
+            "bound_by": "operations" if ops_ms >= byte_ms else "bytes",
+            "ops_bound_ms": ops_ms, "bytes_bound_ms": byte_ms,
+            "products": need, "executed_products": run,
+            "executed_ops_ms": run * muls / INT32_OPS_PER_S * 1e3}
+
+
+def k6_check(device, seed: int) -> dict:
+    """Phase 13 (0): K6 against its plain version, verdict for verdict,
+    for P-256 and P-384 at windows 8 and 0, at K6_WIDTHS lanes: the plain
+    version runs once on the wide batch, whose first K6_WIDTHS[0] lanes
+    are the narrow batch. A sample of lanes held to verify_ecdsa. K6
+    timed with CUDA events at both widths, the plain version once."""
+    import numpy as np
+    import torch
+
+    from ct_mapreduce_tpu_torch.ops import ecdsa, ecdsa_cuda
+    from ct_mapreduce_tpu_torch.verify import host
+
+    out = {}
+    wide = K6_WIDTHS[-1]
+    for ops in (ecdsa.P256_OPS, ecdsa.P384_OPS):
+        c = ops.curve
+        t0 = time.perf_counter()
+        rows, valid, key_idx, keys, lanes = k6_corpus(c, wide, seed)
+        gen_s = time.perf_counter() - t0
+        dev_rows = [torch.from_numpy(a).to(device) for a in rows]
+        dev_valid = torch.from_numpy(valid).to(device)
+        dev_keys = torch.from_numpy(key_idx).to(device)
+        host_want = {}
+        for i in range(K6_HOST_SAMPLE):
+            _k, dg, r, s, x, y = lanes[i]
+            lim = 1 << (8 * c.byte_len)
+            host_want[i] = bool(valid[i]) and host.verify_ecdsa(
+                c, dg, r % lim, s % lim, x % lim, y % lim)
+        for window in (8, 0):
+            if window:
+                gtab, _ = ecdsa.fixed_base_table(ops, window, device)
+                qtab = ecdsa.zero_qtable(32, ops.nbits // window,
+                                         1 << window, ops.mod_p.nlimb, device)
+                for slot, (x, y) in enumerate(keys):
+                    ecdsa.qtable_slot_set(qtab, slot, ecdsa.point_table_cached(
+                        ops, window, x, y)[0])
+
+                def run(n, fn):
+                    return fn(ops, *[a[:n] for a in dev_rows], dev_valid[:n],
+                              dev_keys[:n], gtab, qtab)
+
+                kern, plain = ecdsa_cuda.verify_windowed, ecdsa._verify_windowed
+            else:
+                def run(n, fn):
+                    return fn(ops, *[a[:n] for a in dev_rows], dev_valid[:n])
+
+                kern, plain = ecdsa_cuda.verify_jacobian, ecdsa._verify_jacobian
+            if not out:
+                # The plain version's first call pays its kernels' first
+                # launches; later calls reuse the same kernels.
+                run(32, plain)
+                torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = run(wide, plain)
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end)
+            got_host = want[:K6_HOST_SAMPLE].cpu().tolist()
+            check(got_host == [host_want[i] for i in range(K6_HOST_SAMPLE)],
+                  f"K6 {c.name} w{window}: the plain version differs from "
+                  "verify_ecdsa")
+            for n in K6_WIDTHS:
+                got = run(n, kern)
+                torch.cuda.synchronize()
+                err = int((got != want[:n]).sum())
+                check(err == 0, f"K6 {c.name} w{window} at {n} lanes: {err} "
+                      "verdicts differ from the plain version")
+                times = []
+                calls = 10 if n <= 1024 else (3 if window else 1)
+                for _ in range(2):
+                    times += cuda_times(lambda: run(n, kern), 10, calls)
+                st = dict(k6_bound(ops, window, lanes[:n], valid[:n]),
+                          lanes=n, max_abs_err=err,
+                          kernel_ms=median(times), kernel_ms_min=min(times),
+                          kernel_ms_max=max(times),
+                          valid_share=float(got.float().mean()))
+                if n == wide:
+                    st.update(plain_ms=plain_ms, gen_s=gen_s)
+                st["share_of_bound"] = st["bound_ms"] / st["kernel_ms"]
+                out[f"{c.name}_w{window}_{n}"] = st
+                print(f"phase 13 (0): K6 {c.name} window {window} == plain "
+                      f"on {n} lanes ({st['valid_share']:.1%} verified); "
+                      f"kernel {st['kernel_ms']:.3f} ms, bound "
+                      f"{st['bound_ms']:.3f} ms ({st['bound_by']}, "
+                      f"{st['share_of_bound']:.1%}); K6 executes "
+                      f"{st['executed_products'] / st['products']:.2f}x the "
+                      "products needed"
+                      + (f", plain {plain_ms:.0f} ms" if n == wide else ""),
+                      flush=True)
+            del want
+        del dev_rows
+    # The plain version at the lane's width, P-256 window 8 (the default).
+    ops = ecdsa.P256_OPS
+    rows, valid, key_idx, keys, _lanes = k6_corpus(ops.curve, K6_WIDTHS[0],
+                                                   seed)
+    gtab, _ = ecdsa.fixed_base_table(ops, 8, device)
+    qtab = ecdsa.zero_qtable(32, 32, 256, 16, device)
+    for slot, (x, y) in enumerate(keys):
+        ecdsa.qtable_slot_set(qtab, slot, ecdsa.point_table_cached(
+            ops, 8, x, y)[0])
+    args = [torch.from_numpy(a).to(device) for a in rows] + [
+        torch.from_numpy(valid).to(device),
+        torch.from_numpy(key_idx).to(device), gtab, qtab]
+    times = cuda_times(lambda: ecdsa._verify_windowed(ops, *args), 2,
+                       warmup=1)
+    out[f"p256_w8_{K6_WIDTHS[0]}"]["plain_ms"] = median(times)
+    torch.cuda.empty_cache()
+    return out
+
+
+def verify_stream(seed: int, n: int, mix=VERIFY_MIX):
+    """(a), (b)'s stream: ``n`` leaves under VERIFY_ISSUERS CAs, each
+    carrying the embedded SCT of ``mix``'s log (or none), as raw
+    get-entries pages; VERIFY_CORRUPT of the ECDSA signatures corrupted.
+    A template certificate a (CA, log) pair gets its SCT by DER surgery
+    once; each entry restamps the template's serial, computes its RFC
+    6962 digest from the template's reconstructed TBS with the new
+    serial, and patches in its signature (RSA leaves: VERIFY_RSA_DISTINCT
+    of them, replayed). Returns (leaf inputs, extra datas, the keys'
+    registry JSON, the truth: {issuer DER: [verified, failed]} and the
+    lane counts by class)."""
+    import base64
+    import datetime as dt
+    import hashlib
+
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch.ingest import leaf as leaflib
+    from ct_mapreduce_tpu_torch.utils import minicert
+    from ct_mapreduce_tpu_torch.verify import host
+    from ct_mapreduce_tpu_torch.verify import lane as vlane
+    from ct_mapreduce_tpu_torch.verify import sct as sctlib
+
+    future = dt.datetime(2031, 6, 15, tzinfo=dt.timezone.utc)
+    signer_cls = _fixed_nonce_signer()
+    signers = {"p256-a": signer_cls("smoke-p256-a"),
+               "p256-b": signer_cls("smoke-p256-b"),
+               "p384": signer_cls("smoke-p384", host.P384),
+               "rsa": sctlib.RsaSctSigner(),
+               "unregistered": signer_cls("smoke-unregistered")}
+    reg = vlane.LogKeyRegistry()
+    for name in ("p256-a", "p256-b", "p384", "rsa"):
+        reg.register_signer(signers[name])
+    issuers = [minicert.make_cert(serial=1, issuer_cn=f"Verify CA {k}",
+                                  is_ca=True, not_after=future)
+               for k in range(VERIFY_ISSUERS)]
+    marker = 0x5A5A5A5A5A5A5A5A5A5A5A5A5A5A
+    templates = {}
+    for k, iss in enumerate(issuers):
+        base = minicert.make_cert(serial=marker, issuer_cn=f"Verify CA {k}",
+                                  subject_cn=f"verify{k}.example",
+                                  not_after=future)
+        ser = marker.to_bytes(15, "big")
+        for name, _share in mix:
+            ts = 1_700_000_000_000 + k
+            cert = base if name == "none" else sctlib.attach_sct(
+                base, signers[name], ts, issuer_der=iss)
+            t = {"der": cert, "ser_off": cert.index(ser), "ts": ts}
+            if name != "none":
+                win = sctlib.find_sct_extension(cert)
+                t["sig_off"] = win[2] + 51
+                tbs = sctlib.reconstruct_precert_tbs(cert)
+                t["tbs"] = (tbs[: tbs.index(ser)],
+                            tbs[tbs.index(ser) + 15:])
+                t["head"] = (b"\x00\x00" + ts.to_bytes(8, "big") + b"\x00\x01"
+                             + sctlib.issuer_key_hash_of(iss)
+                             + len(tbs).to_bytes(3, "big"))
+                t["tail"] = b"\x00\x00"  # no SCT extensions
+            templates[(k, name)] = t
+    rng = np.random.default_rng(seed + 1313)
+    names = [m[0] for m in mix]
+    cls = rng.choice(len(names), n, p=[m[1] for m in mix])
+    iss_of = rng.integers(0, VERIFY_ISSUERS, n)
+    corrupt = rng.random(n) < VERIFY_CORRUPT
+    truth = {iss: [0, 0] for iss in issuers}
+    counts = {name: 0 for name in names}
+    extra = [base64.b64encode(leaflib.encode_extra_data([iss])).decode()
+             for iss in issuers]
+    lis, eds = [], []
+    rsa_cache: dict = {}
+    for i in range(n):
+        name = names[cls[i]]
+        k = int(iss_of[i])
+        counts[name] += 1
+        t = templates[(k, name)]
+        serial = (n + i % VERIFY_RSA_DISTINCT if name == "rsa" else i) + 1
+        ser = (serial + (k << 100)).to_bytes(15, "big")
+        key = (k, serial) if name == "rsa" else None
+        cert = rsa_cache.get(key) if key else None
+        bad = bool(corrupt[i]) and name not in ("rsa", "none")
+        if cert is None:
+            der = bytearray(t["der"])
+            der[t["ser_off"]: t["ser_off"] + 15] = ser
+            if name != "none":
+                digest = hashlib.sha256(t["head"] + t["tbs"][0] + ser
+                                        + t["tbs"][1] + t["tail"]).digest()
+                sig = bytearray(signers[name].sign(digest))
+                if bad:
+                    sig[-1] ^= 0x01
+                der[t["sig_off"]: t["sig_off"] + len(sig)] = sig
+            cert = bytes(der)
+            if key:
+                rsa_cache[key] = cert
+        if name not in ("unregistered", "none"):
+            truth[issuers[k]][1 if bad else 0] += 1
+        lis.append(base64.b64encode(leaflib.encode_leaf_input(
+            cert, timestamp_ms=1_700_000_000_000 + i)).decode())
+        eds.append(extra[k])
+    return lis, eds, reg.to_json(), truth, counts
+
+
+def _verify_keys_file(keys_json: str) -> str:
+    d = os.path.join(HERE, "build", "smoke_verify")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "keys.json")
+    with open(path, "w") as f:
+        f.write(keys_json)
+    return path
+
+
+def _check_verify_truth(agg, truth, what: str) -> None:
+    for iss, (v, f) in truth.items():
+        idx = agg.registry.get_or_assign(iss)
+        got = (int(agg.verify_verified[idx]), int(agg.verify_failed[idx]))
+        check(got == (v, f), f"{what}: issuer {idx} verified/failed {got}, "
+              f"want {(v, f)}")
+
+
+def verify_sink(device, stream, p256_stream) -> dict:
+    """Phase 13 (a): the stream through an ``AggregatorSink`` that
+    ``build_sink`` makes with ``verifySignatures`` and ``verifyLogKeys``
+    (K6 on the card), against the generator's truth; then the same pages
+    through a sink without the lane, for its cost. The same pair of runs
+    over ``p256_stream`` (P-256 SCTs only, one chunk) gives the lane's
+    cost where every lane goes to K6 (no P-384 re-extraction, no RSA
+    host verify)."""
+    out = {}
+    for label, st_in in (("", stream), ("p256_", p256_stream)):
+        for lane in (True, False):
+            out[f"{label}{'lane' if lane else 'no_lane'}"] = _verify_sink_run(
+                device, st_in, lane, label or "verify-sink")
+    lis, counts = stream[0], stream[4]
+    print(f"phase 13 (a) verify-sink: {len(lis)} entries ({counts}); "
+          f"verdicts == truth per issuer ({out['lane']['verified']} verified, "
+          f"{out['lane']['failed']} failed), {out['lane']['stats']['device_lanes']} "
+          f"device lanes in {out['lane']['launches']['ecdsa_verify']} K6 "
+          f"launches, {out['lane']['stats']['host_lanes']} host lanes; "
+          f"{out['lane']['chunk_s']:.3f} s a {VERIFY_BATCH}-entry chunk with "
+          f"the lane, {out['no_lane']['chunk_s']:.3f} s without; P-256 only "
+          f"({len(p256_stream[0])} entries, {out['p256_lane']['verified']} "
+          f"verified, {out['p256_lane']['failed']} failed == truth): "
+          f"{out['p256_lane']['chunk_s']:.3f} s a chunk with the lane, "
+          f"{out['p256_no_lane']['chunk_s']:.3f} s without", flush=True)
+    return out
+
+
+def _verify_sink_run(device, stream, lane: bool, what: str) -> dict:
+    """One run of (a): ``stream``'s pages through a sink with or without
+    the verify lane, timed from the first page to the sink's close."""
+    import dataclasses
+
+    import torch
+
+    from ct_mapreduce_tpu_torch.config import CTConfig
+    from ct_mapreduce_tpu_torch.ingest import sync
+
+    lis, eds, keys_json, truth, counts = stream
+    keys = _verify_keys_file(keys_json)
+    cfg = dataclasses.replace(
+        CTConfig(batch_size=VERIFY_BATCH, table_bits=VERIFY_TABLE_BITS),
+        backend="tpu", verify_signatures=lane,
+        verify_log_keys=keys if lane else "")
+    sink, model = sync.build_sink(cfg, device=device)
+    prebuild_s = 0.0
+    if lane:
+        # The log keys' window tables build on the verifier's prebuild
+        # thread; the timed run starts once they are in the process
+        # cache, as a long-running ct-fetch finds them.
+        t0 = time.perf_counter()
+        sink.verifier._prebuild_thread.join()
+        prebuild_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    for p in range(0, len(lis), SINK_PAGE):
+        sink.store_raw_batch(sync.RawBatch(
+            lis[p: p + SINK_PAGE], eds[p: p + SINK_PAGE], p, "verify"))
+    sink.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    run = {"wall_s": wall, "launches": launches, "prebuild_s": prebuild_s,
+           "entries": len(lis),
+           "chunk_s": wall / -(-len(lis) // VERIFY_BATCH)}
+    if lane:
+        st = dict(sink.verifier.stats)
+        ecdsa_keys = [k for k in ("p256-a", "p256-b", "p384")
+                      if counts.get(k, 0)]
+        ecdsa_lanes = sum(counts[k] for k in ecdsa_keys)
+        check(st["device_lanes"] == ecdsa_lanes,
+              f"{what}: {st['device_lanes']} device lanes, want "
+              f"{ecdsa_lanes}")
+        check(st["host_lanes"] == counts.get("rsa", 0),
+              f"{what}: {st['host_lanes']} host lanes, want the "
+              f"{counts.get('rsa', 0)} RSA lanes")
+        check(st["no_key"] == counts.get("unregistered", 0)
+              and st["no_sct"] == counts.get("none", 0),
+              f"{what}: no_key/no_sct {st['no_key']}/{st['no_sct']}")
+        check(st["qtable_misses"] == len(ecdsa_keys),
+              f"{what}: {st['qtable_misses']} Q-table misses, want one a "
+              f"distinct ECDSA log key ({len(ecdsa_keys)})")
+        check(launches["ecdsa_verify"] > 0, f"{what}: K6 never ran")
+        _check_verify_truth(model.aggregator, truth, what)
+        run.update(stats=st, verified=st["verified"], failed=st["failed"])
+    del sink, model
+    torch.cuda.empty_cache()
+    return run
+
+
+def verify_fetch(device, stream) -> dict:
+    """Phase 13 (b): the stream served as a log on 127.0.0.1 (a thread of
+    this process), ct-fetch with ``verifySignatures`` and
+    ``verifyLogKeys``, then ``storage-statistics -json``: totals equal
+    the truth."""
+    import contextlib
+    import io
+
+    from ct_mapreduce_tpu_torch.cmd import storage_statistics
+    from ct_mapreduce_tpu_torch.utils.fakelog import FakeLog, LogServer
+
+    lis, eds, keys_json, truth, _counts = stream
+    keys = _verify_keys_file(keys_json)
+    d = os.path.join(HERE, "build", "smoke_verify")
+    state = os.path.join(d, "fetch.npz")
+    _fresh(state)
+    log = FakeLog(url="https://ct.smoke.example/verify")
+    for li, ed in zip(lis, eds):
+        log.add_raw(li, ed)
+    ini = os.path.join(d, "fetch.ini")
+    with LogServer(log) as srv:
+        with open(ini, "w") as f:
+            f.write(f"logList = {srv.url}\nbackend = tpu\n"
+                    f"batchSize = {VERIFY_BATCH}\n"
+                    f"tableBits = {VERIFY_TABLE_BITS}\naggStatePath = {state}\n"
+                    f"healthAddr = \nverifySignatures = true\n"
+                    f"verifyLogKeys = {keys}\n")
+        run = fetch_run(device, "verify-fetch", ini)
+    model = run.pop("model")
+    check(run["launches"]["ecdsa_verify"] > 0, "verify-fetch: K6 never ran")
+    _check_verify_truth(model.aggregator, truth, "verify-fetch")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = storage_statistics.main(["-config", ini, "-json"])
+    check(rc == 0, f"verify-fetch: storage-statistics exit code {rc}")
+    totals = json.loads(buf.getvalue())["totals"]
+    want_v = sum(v for v, _ in truth.values())
+    want_f = sum(f for _, f in truth.values())
+    check((totals.get("sctsVerified"), totals.get("sctsFailed"))
+          == (want_v, want_f),
+          f"verify-fetch: report totals {totals.get('sctsVerified')}/"
+          f"{totals.get('sctsFailed')}, want {want_v}/{want_f}")
+    print(f"phase 13 (b) verify-fetch: ct-fetch with verifySignatures over "
+          f"{run['entries']} entries in {run['wall_s']:.2f} s; "
+          f"storage-statistics {want_v} verified, {want_f} failed == truth; "
+          f"{run['launches']['ecdsa_verify']} K6 launches", flush=True)
+    return run
+
+
+def verify_phase(device, seed: int) -> dict:
+    """Phase 13: (0) K6 against its plain version; (a) verify-sink; (b)
+    verify-fetch."""
+    out = {"k6": k6_check(device, seed)}
+    t0 = time.perf_counter()
+    stream = verify_stream(seed, VERIFY_ENTRIES)
+    out["stream_gen_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p256_stream = verify_stream(seed + 1, VERIFY_BATCH, VERIFY_MIX_P256)
+    out["p256_stream_gen_s"] = time.perf_counter() - t0
+    out["sink"] = verify_sink(device, stream, p256_stream)
+    out["fetch"] = verify_fetch(device, stream)
+    return out
+
+
 def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
                  preparsed: dict, sinks: dict, fetch: dict,
-                 extra_paths: dict, k5: dict) -> dict:
+                 extra_paths: dict, k5: dict, k6: dict) -> dict:
     """The ``{"kernels": [...]}`` record: every kernel of the port with
     its launches on each main path and this run's measurements."""
     from ct_mapreduce_tpu_torch.tools import mosaic_probe as mp
@@ -3115,6 +3673,24 @@ def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
         "bound_by": k5["fused"]["bound_by"], "library_ms": None,
         "one_layer": {key: k5["layer"][key] for key in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+    }, {
+        # P-256 at window 8 on 2^16 lanes; the other configurations and
+        # the lane's width (1,024) ride beside it.
+        "name": "ecdsa_verify", "route": "cuda",
+        "source": "ct_mapreduce_tpu_torch/csrc/ecdsa_verify.cu",
+        "replaces": "ct_mapreduce_tpu/ops/ecdsa.py:549",
+        "launches": paths["verify_sink"]["ecdsa_verify"],
+        "launches_by_path": by_path("ecdsa_verify"),
+        "max_abs_err": max(c["max_abs_err"] for c in k6.values()),
+        "ms": k6[f"p256_w8_{K6_WIDTHS[-1]}"]["kernel_ms"],
+        "plain_ms": k6[f"p256_w8_{K6_WIDTHS[-1]}"]["plain_ms"],
+        "bound_ms": k6[f"p256_w8_{K6_WIDTHS[-1]}"]["bound_ms"],
+        "bound_by": k6[f"p256_w8_{K6_WIDTHS[-1]}"]["bound_by"],
+        "library_ms": None,
+        "configurations": {name: {key: c.get(key) for key in (
+            "lanes", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "products", "executed_products", "max_abs_err")}
+            for name, c in k6.items()},
     }]
     for i, st in enumerate(probe["stages"]):
         rows.append({
@@ -3127,7 +3703,7 @@ def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": st["library_ms"],
         })
-    check(len(rows) == 3 + len(mp.STAGES), "a kernel is missing from the line")
+    check(len(rows) == 4 + len(mp.STAGES), "a kernel is missing from the line")
     return {"kernels": rows}
 
 
@@ -3260,6 +3836,9 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
                         logs.wait_ready()[2], fetch_truth)
     logs.stop()
     lap("12")
+    torch.cuda.empty_cache()
+    verify = verify_phase(device, args.seed)
+    lap("13")
     prof = None
     if args.profile:
         torch.cuda.empty_cache()
@@ -3273,7 +3852,8 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
                "walker_kernel": k3, "probe": probe, "lanes": lanes,
                "open_layout": opened, "big_table": big, "sinks": sinks,
                "checkpoints": ckpts, "fetch": fetch, "serve": serve,
-               "filter": filt, "profile": prof, "sass": sass, "phase_s": phase_s,
+               "filter": filt, "verify": verify, "profile": prof, "sass": sass,
+               "phase_s": phase_s,
                "wall_s": time.perf_counter() - t_start}
     print("phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items())
@@ -3290,10 +3870,16 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
                    "filter_main": filt["main"]["launches"]["fl02"],
                    "filter_main_fl01": filt["main"]["launches"]["fl01"],
                    "filter_fetch": filt["fetch"]["launches"],
-                   "filter_scale": filt["scale"]["launches"]}
+                   "filter_scale": filt["scale"]["launches"],
+                   "verify_sink": verify["sink"]["lane"]["launches"],
+                   "verify_sink_off": verify["sink"]["no_lane"]["launches"],
+                   "verify_sink_p256": verify["sink"]["p256_lane"]["launches"],
+                   "verify_sink_p256_off":
+                       verify["sink"]["p256_no_lane"]["launches"],
+                   "verify_fetch": verify["fetch"]["launches"]}
     print(json.dumps(kernels_line(k1, k3, probe, lanes["walker"],
                                   lanes["preparsed"], sinks, fetch,
-                                  extra_paths, filt["k5"])),
+                                  extra_paths, filt["k5"], verify["k6"])),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

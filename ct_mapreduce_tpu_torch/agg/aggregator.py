@@ -42,8 +42,10 @@ host lane ``_host_dedup`` and ck02 segment replay), rides ck01 files as
 ``captureTokens``, and compiles into a filter artifact after every save
 (``configure_filter_emission``, :mod:`..filter`).
 
-Left out so far: signature verification (ROADMAP item 11; its
-per-issuer vectors ride the checkpoints as zeros).
+The signature-verification lane (:mod:`..verify.lane`) folds its
+verdicts into the per-issuer ``verify_verified`` / ``verify_failed``
+vectors (:meth:`TorchAggregator.grow_verify_totals` widens them), which
+ride the checkpoints.
 """
 
 from __future__ import annotations
@@ -330,8 +332,8 @@ class AggregateSnapshot:
     crls: dict[str, set[str]]  # issuerID → CRL DP URLs
     dns: dict[str, set[str]]  # issuerID → issuer DN strings
     total: int = 0
-    # Per-issuer signature-verification verdicts; empty until the verify
-    # lane is ported.
+    # Per-issuer signature-verification verdicts; empty while the verify
+    # lane is off.
     verified: dict[str, int] = field(default_factory=dict)
     failed: dict[str, int] = field(default_factory=dict)
 
@@ -436,8 +438,8 @@ class TorchAggregator:
         self._dn_raw_seen: set[tuple[int, bytes]] = set()
         # Device-side per-issuer unknown totals (running).
         self.issuer_totals = np.zeros((packing.MAX_ISSUERS,), np.int64)
-        # Per-issuer embedded-SCT verdict counts: zeros until the verify
-        # lane is ported; checkpoints carry them either way.
+        # Per-issuer embedded-SCT verdict counts, folded by the verify
+        # lane (verify/lane.py); checkpoints carry them.
         self.verify_verified = np.zeros((packing.MAX_ISSUERS,), np.int64)
         self.verify_failed = np.zeros((packing.MAX_ISSUERS,), np.int64)
         # Submitted-but-not-completed ingests of every lane (FIFO).
@@ -656,6 +658,19 @@ class TorchAggregator:
     def _now_hour(self) -> int:
         now = self._fixed_now or datetime.now(timezone.utc)
         return int(now.timestamp()) // 3600
+
+    def grow_verify_totals(self, max_idx: int) -> None:
+        """Ensure the verify vectors cover issuer index ``max_idx``
+        (registry indices are unbounded; only the device meta word caps
+        at MAX_ISSUERS). Caller holds the fold lock."""
+        if max_idx < self.verify_verified.shape[0]:
+            return
+        size = max(max_idx + 1, 2 * self.verify_verified.shape[0])
+        for name in ("verify_verified", "verify_failed"):
+            grown = np.zeros((size,), np.int64)
+            old = getattr(self, name)
+            grown[: old.shape[0]] = old
+            setattr(self, name, grown)
 
     def verify_counts(self) -> dict[str, tuple[int, int]]:
         """issuerID → (verified, failed), nonzero rows only."""

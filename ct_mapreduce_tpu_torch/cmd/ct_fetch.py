@@ -30,6 +30,15 @@ live aggregator, on the aggregator's device: membership answers from
 pinned copies of the dedup table, ``/issuer``, ``/healthz`` and the
 ``/getcert`` proxy, while the run ingests.
 
+``verifySignatures`` verifies the embedded SCT of every ingested
+certificate against the keys of ``verifyLogKeys``: P-256 and P-384 keys
+through the ECDSA verify K6 on the aggregator's device, RSA and
+malformed lanes through the host verifier (``verifyBatch``,
+``verifyPrecompWindow`` and ``verifyQTableSize`` tune it, as in the JAX
+package); the verdicts ride the checkpoint into storage-statistics, and
+the ``healthAddr`` body gains a ``verify`` section (the JAX package has
+it on the ``metricsPort`` body, not ported yet).
+
 Directives whose subsystem the port does not have yet raise a
 ``ValueError`` naming the ROADMAP item that brings it (see
 :func:`refuse_unported`); none is silently ignored. The lock-order
@@ -129,9 +138,6 @@ def refuse_unported(config: CTConfig) -> None:
         (bool(config.checkpoint_period
               or os.environ.get("CTMR_CHECKPOINT_PERIOD")),
          "checkpointPeriod (the fleet's checkpoint cadence)", "item 12"),
-        (config.verify_signatures
-         or os.environ.get("CTMR_VERIFY", "0") == "1",
-         "verifySignatures (the verify lane)", "item 11"),
         (config.metrics_port != 0,
          "metricsPort (the Prometheus endpoint)", "item 14"),
         (config.fleet_metrics is True, "fleetMetrics (fleet observability)",
@@ -277,6 +283,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
             health = HealthServer(
                 engine, parse_duration(config.polling_delay_mean),
                 addr=config.health_addr,
+                verifier=getattr(sink, "verifier", None),
             )
             health.start()
         except OSError as err:

@@ -6,6 +6,11 @@ update is older than 2 × pollingDelayMean ("stalled"); 200 otherwise,
 with a JSON body of per-log ages.
 
 A copy of ``ct_mapreduce_tpu.ingest.health``: the port imports nothing of the JAX package.
+One difference: given the verify lane's ``verifier``, every body carries
+its ``verify`` section (knobs, outcome totals, Q-table occupancy). The
+JAX package's ct-fetch puts that section on the metrics server's
+``/healthz`` body instead (``metricsPort``), which the port does not
+serve yet (ROADMAP item 14); the section moves there with it.
 """
 
 from __future__ import annotations
@@ -18,8 +23,10 @@ from typing import Optional
 
 
 class HealthServer:
-    def __init__(self, engine, polling_delay_mean_s: float, addr: str = ":8080"):
+    def __init__(self, engine, polling_delay_mean_s: float, addr: str = ":8080",
+                 verifier=None):
         self.engine = engine
+        self.verifier = verifier
         self.stall_after_s = 2.0 * polling_delay_mean_s
         host, _, port = addr.rpartition(":")
         self.host = host or "0.0.0.0"
@@ -28,6 +35,12 @@ class HealthServer:
         self._thread: Optional[threading.Thread] = None
 
     def status(self) -> tuple[int, dict]:
+        code, body = self._status()
+        if self.verifier is not None:
+            body["verify"] = self.verifier.health()
+        return code, body
+
+    def _status(self) -> tuple[int, dict]:
         updates = self.engine.last_updates()
         if not updates:
             return 503, {"status": "no updates yet"}

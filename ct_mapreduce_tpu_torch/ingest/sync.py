@@ -63,8 +63,15 @@ instead of ``jax.device_put``.
 - The staged ring keeps the chunk that follows a ring flush (the JAX
   sink drops it; ROADMAP.md queue 3).
 
-The verify lane is not ported: ``verify_signatures`` raises a
-``ValueError`` naming ROADMAP item 11.
+The signature-verification lane (``verify_signatures``, the
+``verifySignatures`` directive): each decoded chunk also runs the native
+SCT extraction pass, and the sink's :class:`~..verify.lane.
+SignatureVerifier` verifies the device-decidable SCTs through the ECDSA
+verify K6 (on the aggregator's device) beside the dedup dispatch,
+replays RSA and malformed lanes through the host verifier, and folds
+the verdicts into the aggregator's per-issuer verified/failed vectors.
+Every path (unstaged, staged, overlapped) feeds it at submit time, and
+a flush drains it.
 """
 
 from __future__ import annotations
@@ -109,6 +116,20 @@ _STAGING_KNOBS = (
                      parse=int, is_set=platprofile.pos_int,
                      post=lambda v: max(1, int(v))),
 )
+
+
+def _resolve_verify_lazy(flag, keys_path, window=None, qtable_size=0):
+    """Import-light wrapper around ``verify.lane.resolve_verify``: the
+    verify package (and with it the ECDSA kernels) loads only when the
+    lane could be on."""
+    if flag is None:
+        flag = os.environ.get("CTMR_VERIFY", "0") == "1"
+    if not flag:
+        return False, "", 0, 0, 0
+    from ct_mapreduce_tpu_torch.verify.lane import resolve_verify
+
+    return resolve_verify(True, keys_path, window=window,
+                          qtable_size=qtable_size)
 
 
 def resolve_staging(chunks_per_dispatch: int = 0,
@@ -268,13 +289,10 @@ class AggregatorSink:
                  overlap_workers: int = 0, preparsed: Optional[bool] = None,
                  decode_threads: int = 0, chunks_per_dispatch: int = 0,
                  staging_depth: int = 0,
-                 verify_signatures: Optional[bool] = None):
-        if verify_signatures is None:
-            verify_signatures = os.environ.get("CTMR_VERIFY", "0") == "1"
-        if verify_signatures:
-            raise ValueError(
-                "verifySignatures: the verify lane is not ported yet "
-                "(ROADMAP.md queue 1 item 11)")
+                 verify_signatures: Optional[bool] = None,
+                 verify_log_keys: Optional[str] = None,
+                 verify_precomp_window: Optional[int] = None,
+                 verify_qtable_size: int = 0):
         self.aggregator = aggregator
         self.flush_size = flush_size
         # Optional durable backend (certPath): first-seen certs get the
@@ -310,6 +328,26 @@ class AggregatorSink:
         self._staging: list[_PreparedChunk] = []  # the ring (FIFO)
         self._staging_hw = 0  # high-water occupancy
         self._row_bufs = _PinnedPool(aggregator.device.type == "cuda")
+        # Signature-verification lane (`verifySignatures` / CTMR_VERIFY):
+        # `verifyPrecompWindow` (0 = the Jacobian ladder) and
+        # `verifyQTableSize` (the per-curve Q-table slots) as in the JAX
+        # sink; the verdicts fold into the aggregator's per-issuer
+        # verified/failed vectors.
+        v_on, v_keys, v_batch, v_window, v_qsize = _resolve_verify_lazy(
+            verify_signatures, verify_log_keys,
+            verify_precomp_window, verify_qtable_size)
+        self.verifier = None
+        if v_on:
+            from ct_mapreduce_tpu_torch.verify.lane import (
+                LogKeyRegistry,
+                SignatureVerifier,
+            )
+
+            keys = (LogKeyRegistry.from_json_file(v_keys) if v_keys
+                    else LogKeyRegistry())
+            self.verifier = SignatureVerifier(
+                aggregator, keys, batch_width=v_batch,
+                window=v_window, qtable_size=v_qsize)
         # Overlapped ingest (overlapWorkers > 0): raw chunks route through
         # the three-stage scheduler (decode pool ‖ ordered device submit
         # ‖ bounded fold consumer) over the same decode/submit/complete
@@ -524,6 +562,31 @@ class AggregatorSink:
             else:
                 oversized.append((e.cert_der, e.issuer_der))
 
+        # Signature-verification lane: one more native pass over the
+        # packed rows extracts the embedded-SCT tuples. The eligible set
+        # is the decoded-OK, issuer-mapped lanes BEFORE the sidecar split
+        # below (walker-fallback lanes still carry auditable SCTs);
+        # oversized certs never reach packed rows and are not audited.
+        scts = None
+        verify_eligible = None
+        if self.verifier is not None:
+            from ct_mapreduce_tpu_torch.verify import sct as sctlib
+
+            # The RFC 6962 digest signs the lane's issuer_key_hash:
+            # SHA-256 of the chain issuer's SPKI, once an issuer group;
+            # lanes without a mapped issuer hash as all-zero.
+            ikh_groups = np.zeros((len(dec.group_issuers) + 1, 32),
+                                  np.uint8)
+            for g, der in enumerate(dec.group_issuers):
+                ikh_groups[g] = np.frombuffer(
+                    sctlib.issuer_key_hash_of(der), np.uint8)
+            lane_ikh = ikh_groups[np.where(valid, dec.issuer_group, -1)]
+            scts = leafpack.extract_scts(
+                data, dec.length,
+                threads=self.decode_threads or self.decode_workers,
+                issuer_key_hash=lane_ikh)
+            verify_eligible = valid.copy()
+
         # Pre-parsed lane: walker-exact sidecars on the host; lanes the
         # extractor cannot decide replay through the walker lane.
         sidecar = None
@@ -555,7 +618,18 @@ class AggregatorSink:
             data=rows, host_data=data, length=dec.length,
             issuer_idx=issuer_idx, valid=valid, dec=dec,
             oversized=oversized, sidecar=sidecar,
-            walker_fallback=walker_fallback, row_buf=buf)
+            walker_fallback=walker_fallback, row_buf=buf,
+            scts=scts, verify_eligible=verify_eligible)
+
+    def _submit_verify(self, prep: "_PreparedChunk") -> None:
+        """Route one prepared chunk's SCT lanes into the verify lane.
+        Caller holds ``_dispatch_lock`` (the verifier shares the one
+        device stream with the dedup dispatch)."""
+        if self.verifier is None or prep.scts is None:
+            return
+        self.verifier.submit_chunk(
+            prep.scts, prep.issuer_idx, prep.verify_eligible,
+            prep.host_data, prep.length)
 
     # -- staged device queue ---------------------------------------------
     def _submit_staged(self, prep: "_PreparedChunk") -> list[tuple]:
@@ -668,6 +742,7 @@ class AggregatorSink:
         lanes, already folded), which only need their PEMs. With
         ``chunksPerDispatch`` > 1 a chunk may add no pending (staged,
         awaiting ring mates) or one covering a whole envelope."""
+        self._submit_verify(prep)
         if self.chunks_per_dispatch > 1 and prep.sidecar is None:
             return self._submit_staged(prep)
         items: list[tuple] = []
@@ -729,6 +804,10 @@ class AggregatorSink:
                 # overlap path flushed it on its submit thread above).
                 self._queue_items(self._flush_staging_items())
                 self._drain_inflight(0)
+                if self.verifier is not None:
+                    # The verify lane's barrier too: the partial batch
+                    # launches and every verdict folds.
+                    self.verifier.drain()
 
     def close(self) -> None:
         """Flush, then stop the overlap scheduler's threads (no-op in
@@ -809,6 +888,9 @@ class _PreparedChunk:
     # undecidable lanes, replayed through the walker lane
     row_buf: Optional[torch.Tensor] = None  # the pool buffer
     # ``host_data`` lives in, given back after the chunk's fold
+    scts: object = None  # verify.sct.SctBatch — verify lane active
+    verify_eligible: object = None  # bool[n] — decoded-OK lanes as of
+    # extraction time (before the sidecar split)
 
 
 @dataclass
@@ -1301,7 +1383,15 @@ def build_sink(config, device=None, database=None, backend=None):
                               chunks_per_dispatch=config.chunks_per_dispatch,
                               staging_depth=config.staging_depth,
                               verify_signatures=(config.verify_signatures
-                                                 or None)), model
+                                                 or None),
+                              verify_log_keys=(config.verify_log_keys
+                                               or None),
+                              verify_precomp_window=(
+                                  config.verify_precomp_window
+                                  if config.verify_precomp_window >= 0
+                                  else None),
+                              verify_qtable_size=config.verify_qtable_size,
+                              ), model
     if database is None:
         raise ValueError("the database path needs a database "
                          "(engine.get_configured_storage)")

@@ -4,8 +4,9 @@
 Builds :file:`ctmr_native.cpp` on first use into the checkout's
 git-ignored ``build/native`` directory (never beside the source) and
 loads it. Bound here: the batch leaf decoder and DER packer the ingest
-sink calls, and the sidecar extraction of the pre-parsed lane, each
-with its multi-threaded entry point.
+sink calls, the sidecar extraction of the pre-parsed lane and the
+embedded-SCT extraction of the verify lane, each with its
+multi-threaded entry point.
 """
 
 from __future__ import annotations
@@ -123,5 +124,19 @@ def load() -> Optional[ctypes.CDLL]:
         lib.ctmr_extract_sidecars_mt.restype = None
         lib.ctmr_extract_sidecars_mt.argtypes = sidecar_args + [
             ctypes.c_int64]
+        sct_args = [
+            ctypes.c_int64,
+            u8p, ctypes.c_int64, i32p,
+            u8p,
+            u8p,
+            u8p, u8p,
+            i64p,
+            u8p, u8p,
+            u8p, u8p,
+        ]
+        lib.ctmr_extract_scts_v2.restype = None
+        lib.ctmr_extract_scts_v2.argtypes = sct_args
+        lib.ctmr_extract_scts_v2_mt.restype = None
+        lib.ctmr_extract_scts_v2_mt.argtypes = sct_args + [ctypes.c_int64]
         _LIB = lib
         return _LIB

@@ -892,3 +892,472 @@ int64_t ctmr_pack_ders_mt(
 
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------
+// Embedded-SCT extraction (copied from the JAX package's decoder): the
+// host half of the signature verification lane. A PLAIN byte-wise DER
+// walk (no word windows — the consumer is the host, not the device
+// walker) that must stay in exact lockstep with the python mirror
+// ct_mapreduce_tpu_torch/verify/sct.py: same TLV acceptance, same
+// SCT-list bounds, same digest convention, same ok/fallback
+// classification. Parity is pinned by tests/test_torch_verify.py's
+// extraction fuzz.
+
+namespace sctext {
+
+// FIPS 180-4 SHA-256, incremental (the signed payload is streamed:
+// header ‖ der-before-ext ‖ der-after-ext ‖ extensions).
+struct Sha256 {
+  uint32_t h[8];
+  uint8_t buf[64];
+  uint64_t total = 0;
+  int fill = 0;
+  Sha256() {
+    static const uint32_t h0[8] = {
+        0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+        0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19};
+    for (int i = 0; i < 8; ++i) h[i] = h0[i];
+  }
+  static uint32_t rotr(uint32_t x, int n) {
+    return (x >> n) | (x << (32 - n));
+  }
+  void block(const uint8_t* p) {
+    static const uint32_t K[64] = {
+        0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b,
+        0x59f111f1, 0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01,
+        0x243185be, 0x550c7dc3, 0x72be5d74, 0x80deb1fe, 0x9bdc06a7,
+        0xc19bf174, 0xe49b69c1, 0xefbe4786, 0x0fc19dc6, 0x240ca1cc,
+        0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da, 0x983e5152,
+        0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+        0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc,
+        0x53380d13, 0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85,
+        0xa2bfe8a1, 0xa81a664b, 0xc24b8b70, 0xc76c51a3, 0xd192e819,
+        0xd6990624, 0xf40e3585, 0x106aa070, 0x19a4c116, 0x1e376c08,
+        0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a, 0x5b9cca4f,
+        0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+        0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2};
+    uint32_t w[64];
+    for (int t = 0; t < 16; ++t)
+      w[t] = (uint32_t(p[4 * t]) << 24) | (uint32_t(p[4 * t + 1]) << 16) |
+             (uint32_t(p[4 * t + 2]) << 8) | uint32_t(p[4 * t + 3]);
+    for (int t = 16; t < 64; ++t) {
+      uint32_t s0 = rotr(w[t - 15], 7) ^ rotr(w[t - 15], 18) ^ (w[t - 15] >> 3);
+      uint32_t s1 = rotr(w[t - 2], 17) ^ rotr(w[t - 2], 19) ^ (w[t - 2] >> 10);
+      w[t] = w[t - 16] + s0 + w[t - 7] + s1;
+    }
+    uint32_t a = h[0], b = h[1], c = h[2], d = h[3], e = h[4], f = h[5],
+             g = h[6], hh = h[7];
+    for (int t = 0; t < 64; ++t) {
+      uint32_t s1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+      uint32_t ch = (e & f) ^ (~e & g);
+      uint32_t t1 = hh + s1 + ch + K[t] + w[t];
+      uint32_t s0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+      uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
+      uint32_t t2 = s0 + maj;
+      hh = g; g = f; f = e; e = d + t1;
+      d = c; c = b; b = a; a = t1 + t2;
+    }
+    h[0] += a; h[1] += b; h[2] += c; h[3] += d;
+    h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
+  }
+  void update(const uint8_t* p, int64_t len) {
+    total += (uint64_t)len;
+    while (len > 0) {
+      int take = 64 - fill;
+      if (take > len) take = (int)len;
+      for (int i = 0; i < take; ++i) buf[fill + i] = p[i];
+      fill += take; p += take; len -= take;
+      if (fill == 64) { block(buf); fill = 0; }
+    }
+  }
+  void finish(uint8_t out[32]) {
+    uint64_t bits = total * 8;
+    uint8_t pad = 0x80;
+    update(&pad, 1);
+    uint8_t z = 0;
+    while (fill != 56) update(&z, 1);
+    uint8_t lb[8];
+    for (int i = 0; i < 8; ++i) lb[i] = (uint8_t)(bits >> (56 - 8 * i));
+    update(lb, 8);
+    for (int i = 0; i < 8; ++i)
+      for (int j = 0; j < 4; ++j)
+        out[4 * i + j] = (uint8_t)(h[i] >> (24 - 8 * j));
+  }
+};
+
+struct Tlv {
+  int tag = 0;
+  int64_t off = 0, len = 0;
+  bool ok = false;
+};
+
+// Mirror of sct.py::_tlv — definite lengths, 1..4 length octets.
+inline Tlv tlv(const uint8_t* d, int64_t off, int64_t end) {
+  Tlv t;
+  if (off + 2 > end) return t;
+  t.tag = d[off];
+  int first = d[off + 1];
+  int64_t p = off + 2;
+  if (first < 0x80) {
+    t.len = first;
+  } else {
+    int nb = first & 0x7f;
+    if (nb == 0 || nb > 4 || p + nb > end) return t;
+    int64_t v = 0;
+    for (int i = 0; i < nb; ++i) v = (v << 8) | d[p + i];
+    p += nb;
+    t.len = v;
+  }
+  if (p + t.len > end) return t;
+  t.off = p;
+  t.ok = true;
+  return t;
+}
+
+static const uint8_t kSctOid[10] = {0x2b, 0x06, 0x01, 0x04, 0x01,
+                                    0xd6, 0x79, 0x02, 0x04, 0x02};
+// 1.3.6.1.4.1.11129.2.4.3 — the precert poison (RFC 6962 §3.1),
+// stripped alongside the SCT list during TBS reconstruction.
+static const uint8_t kPoisonOid[10] = {0x2b, 0x06, 0x01, 0x04, 0x01,
+                                       0xd6, 0x79, 0x02, 0x04, 0x03};
+
+struct ExtWin {
+  int64_t tlv_off = 0, tlv_end = 0, val_off = 0, val_end = 0;
+  bool found = false;
+};
+
+// Mirror of sct.py::find_sct_extension.
+inline ExtWin find_sct_extension(const uint8_t* d, int64_t n) {
+  ExtWin w;
+  Tlv t = tlv(d, 0, n);
+  if (!t.ok || t.tag != 0x30) return w;
+  Tlv tbs = tlv(d, t.off, t.off + t.len);
+  if (!tbs.ok || tbs.tag != 0x30) return w;
+  int64_t end = tbs.off + tbs.len;
+  int64_t off = tbs.off;
+  Tlv e = tlv(d, off, end);
+  if (!e.ok) return w;
+  if (e.tag == 0xa0) off = e.off + e.len;
+  for (int i = 0; i < 6; ++i) {
+    e = tlv(d, off, end);
+    if (!e.ok) return w;
+    off = e.off + e.len;
+  }
+  int64_t c_off = 0, c_len = 0;
+  bool got = false;
+  while (off < end) {
+    e = tlv(d, off, end);
+    if (!e.ok) return w;
+    if (e.tag == 0xa3) { c_off = e.off; c_len = e.len; got = true; break; }
+    off = e.off + e.len;
+  }
+  if (!got) return w;
+  Tlv seq = tlv(d, c_off, c_off + c_len);
+  if (!seq.ok || seq.tag != 0x30) return w;
+  off = seq.off;
+  end = seq.off + seq.len;
+  while (off < end) {
+    Tlv ext = tlv(d, off, end);
+    if (!ext.ok || ext.tag != 0x30) return w;
+    int64_t ext_end = ext.off + ext.len;
+    Tlv oid = tlv(d, ext.off, ext_end);
+    if (!oid.ok || oid.tag != 0x06) return w;
+    bool is_sct = oid.len == 10 && std::memcmp(d + oid.off, kSctOid, 10) == 0;
+    int64_t p = oid.off + oid.len;
+    Tlv v = tlv(d, p, ext_end);
+    if (v.ok && v.tag == 0x01) {  // critical BOOLEAN
+      p = v.off + v.len;
+      v = tlv(d, p, ext_end);
+    }
+    if (!v.ok || v.tag != 0x04) return w;
+    if (is_sct) {
+      w.tlv_off = off; w.tlv_end = ext_end;
+      w.val_off = v.off; w.val_end = v.off + v.len;
+      w.found = true;
+      return w;
+    }
+    off = ext_end;
+  }
+  return w;
+}
+
+struct SctFields {
+  const uint8_t* log_id = nullptr;
+  int64_t timestamp = 0;
+  const uint8_t* ext = nullptr;
+  int64_t ext_len = 0;
+  int hash_alg = 0, sig_alg = 0, version = 0;
+  const uint8_t* sig = nullptr;
+  int64_t sig_len = 0;
+  bool ok = false;
+};
+
+// Mirror of sct.py::parse_sct_list (first SCT only).
+inline SctFields parse_sct_list(const uint8_t* b, int64_t n) {
+  SctFields f;
+  if (n < 2) return f;
+  int64_t total = ((int64_t)b[0] << 8) | b[1];
+  if (total + 2 > n || total < 2) return f;
+  int64_t n0 = ((int64_t)b[2] << 8) | b[3];
+  int64_t p = 4;
+  if (p + n0 > n || n0 < 47) return f;
+  int64_t end = p + n0;
+  f.version = b[p];
+  f.log_id = b + p + 1;
+  f.timestamp = 0;
+  for (int i = 0; i < 8; ++i)
+    f.timestamp = (f.timestamp << 8) | b[p + 33 + i];
+  f.ext_len = ((int64_t)b[p + 41] << 8) | b[p + 42];
+  int64_t q = p + 43;
+  if (q + f.ext_len + 4 > end) return f;
+  f.ext = b + q;
+  q += f.ext_len;
+  f.hash_alg = b[q];
+  f.sig_alg = b[q + 1];
+  int64_t sl = ((int64_t)b[q + 2] << 8) | b[q + 3];
+  q += 4;
+  if (q + sl != end) return f;
+  f.sig = b + q;
+  f.sig_len = sl;
+  f.ok = true;
+  return f;
+}
+
+// Mirror of sct.py::parse_ecdsa_sig with max_bytes = 32: big-endian
+// 32-byte outputs, or false (fallback lane). Staged through locals —
+// the python parser accepts or rejects the whole signature at once,
+// so a failure after r parsed must leave r_out untouched (partial
+// writes would diverge from the mirror on fallback lanes).
+inline bool parse_ecdsa_sig32(const uint8_t* s, int64_t n,
+                              uint8_t* r_out, uint8_t* s_out) {
+  Tlv seq = tlv(s, 0, n);
+  if (!seq.ok || seq.tag != 0x30 || seq.off + seq.len != n) return false;
+  int64_t off = seq.off, end = seq.off + seq.len;
+  uint8_t vals[2][32];
+  for (int k = 0; k < 2; ++k) {
+    Tlv v = tlv(s, off, end);
+    if (!v.ok || v.tag != 0x02 || v.len < 1) return false;
+    int64_t a = v.off, b = v.off + v.len;
+    // python: content.lstrip(b"\x00") or b"\x00" — strip every
+    // leading zero but keep one byte for the all-zero value.
+    while (a < b - 1 && s[a] == 0) ++a;
+    int64_t w = b - a;
+    if (w > 32) return false;
+    for (int i = 0; i < 32; ++i) vals[k][i] = 0;
+    for (int64_t i = 0; i < w; ++i) vals[k][32 - w + i] = s[a + i];
+    off = v.off + v.len;
+  }
+  if (off != end) return false;
+  std::memcpy(r_out, vals[0], 32);
+  std::memcpy(s_out, vals[1], 32);
+  return true;
+}
+
+// Minimal-DER header (mirror of sct.py::_wrap_tlv): writes tag +
+// length octets into out (<= 5 bytes), returns the header size.
+inline int wrap_hdr(int tag, int64_t len, uint8_t* out) {
+  out[0] = (uint8_t)tag;
+  if (len < 0x80) { out[1] = (uint8_t)len; return 2; }
+  if (len < 0x100) { out[1] = 0x81; out[2] = (uint8_t)len; return 3; }
+  if (len < 0x10000) {
+    out[1] = 0x82; out[2] = (uint8_t)(len >> 8); out[3] = (uint8_t)len;
+    return 4;
+  }
+  out[1] = 0x83; out[2] = (uint8_t)(len >> 16);
+  out[3] = (uint8_t)(len >> 8); out[4] = (uint8_t)len;
+  return 5;
+}
+
+inline bool strip_oid(const uint8_t* d, const Tlv& oid) {
+  return oid.len == 10 &&
+         (std::memcmp(d + oid.off, kSctOid, 10) == 0 ||
+          std::memcmp(d + oid.off, kPoisonOid, 10) == 0);
+}
+
+// RFC 6962 §3.2 signed payload, streamed (mirror of sct.py::
+// sct_digest over reconstruct_precert_tbs, bit-identical — no
+// materialized TBS buffer): header ‖ issuer_key_hash ‖ len3(tbs') ‖
+// tbs' ‖ ext_len ‖ ext, where tbs' re-encodes the TBS with every
+// SCT/poison extension removed and minimal lengths throughout.
+// Returns false when the certificate doesn't parse to the extractor's
+// acceptance (the caller then reports the lane as SCT_NONE, matching
+// the python mirror).
+inline bool digest_precert(const uint8_t* der, int64_t n,
+                           const SctFields& f, const uint8_t* ikh,
+                           uint8_t* out32) {
+  Tlv cert = tlv(der, 0, n);
+  if (!cert.ok || cert.tag != 0x30) return false;
+  Tlv tbs = tlv(der, cert.off, cert.off + cert.len);
+  if (!tbs.ok || tbs.tag != 0x30) return false;
+  int64_t tbs_end = tbs.off + tbs.len;
+  int64_t off = tbs.off;
+  Tlv e = tlv(der, off, tbs_end);
+  if (!e.ok) return false;
+  if (e.tag == 0xa0) off = e.off + e.len;
+  for (int i = 0; i < 6; ++i) {
+    e = tlv(der, off, tbs_end);
+    if (!e.ok) return false;
+    off = e.off + e.len;
+  }
+  int64_t a3_off = -1, a3_end = 0, seq_off = 0, seq_len = 0;
+  while (off < tbs_end) {
+    e = tlv(der, off, tbs_end);
+    if (!e.ok) return false;
+    if (e.tag == 0xa3) {
+      a3_off = off;
+      a3_end = e.off + e.len;
+      Tlv seq = tlv(der, e.off, a3_end);
+      if (!seq.ok || seq.tag != 0x30) return false;
+      seq_off = seq.off;
+      seq_len = seq.len;
+      break;
+    }
+    off = e.off + e.len;
+  }
+  // Pass 1: surviving extensions content length.
+  int64_t kept_len = 0;
+  if (a3_off >= 0) {
+    int64_t p = seq_off, p_end = seq_off + seq_len;
+    while (p < p_end) {
+      Tlv ext = tlv(der, p, p_end);
+      if (!ext.ok || ext.tag != 0x30) return false;
+      int64_t ext_end = ext.off + ext.len;
+      Tlv oid = tlv(der, ext.off, ext_end);
+      if (!oid.ok || oid.tag != 0x06) return false;
+      if (!strip_oid(der, oid)) kept_len += ext_end - p;
+      p = ext_end;
+    }
+  }
+  uint8_t seq_hdr[5], a3_hdr[5], tbs_hdr[5];
+  int seq_hl = 0, a3_hl = 0;
+  int64_t a3_total = 0;
+  if (a3_off >= 0 && kept_len > 0) {
+    seq_hl = wrap_hdr(0x30, kept_len, seq_hdr);
+    a3_hl = wrap_hdr(0xa3, seq_hl + kept_len, a3_hdr);
+    a3_total = a3_hl + seq_hl + kept_len;
+  }
+  int64_t content_len =
+      a3_off >= 0
+          ? (a3_off - tbs.off) + a3_total + (tbs_end - a3_end)
+          : tbs.len;
+  int tbs_hl = wrap_hdr(0x30, content_len, tbs_hdr);
+  int64_t tbs_total = tbs_hl + content_len;
+
+  Sha256 sha;
+  uint8_t hdr[12];
+  hdr[0] = 0; hdr[1] = 0;
+  for (int j = 0; j < 8; ++j)
+    hdr[2 + j] = (uint8_t)((uint64_t)f.timestamp >> (56 - 8 * j));
+  hdr[10] = 0; hdr[11] = 1;
+  sha.update(hdr, 12);
+  sha.update(ikh, 32);
+  uint8_t l3[3] = {(uint8_t)(tbs_total >> 16), (uint8_t)(tbs_total >> 8),
+                   (uint8_t)tbs_total};
+  sha.update(l3, 3);
+  sha.update(tbs_hdr, tbs_hl);
+  if (a3_off >= 0) {
+    sha.update(der + tbs.off, a3_off - tbs.off);
+    if (kept_len > 0) {
+      sha.update(a3_hdr, a3_hl);
+      sha.update(seq_hdr, seq_hl);
+      // Pass 2: stream the surviving extension TLVs.
+      int64_t p = seq_off, p_end = seq_off + seq_len;
+      while (p < p_end) {
+        Tlv ext = tlv(der, p, p_end);
+        int64_t ext_end = ext.off + ext.len;
+        Tlv oid = tlv(der, ext.off, ext_end);
+        if (!strip_oid(der, oid)) sha.update(der + p, ext_end - p);
+        p = ext_end;
+      }
+    }
+    sha.update(der + a3_end, tbs_end - a3_end);
+  } else {
+    sha.update(der + tbs.off, tbs.len);
+  }
+  uint8_t el[2] = {(uint8_t)(f.ext_len >> 8), (uint8_t)f.ext_len};
+  sha.update(el, 2);
+  sha.update(f.ext, f.ext_len);
+  sha.finish(out32);
+  return true;
+}
+
+}  // namespace sctext
+
+extern "C" {
+
+// Embedded-SCT tuples for a packed row batch: status (0 none /
+// 1 device-ready P-256 / 2 host-fallback), the RFC 6962 precert
+// digest (reconstructed TBS + per-lane issuer_key_hash), log id,
+// timestamp, and big-endian r/s for status-1 lanes. Keep in lockstep
+// with ct_mapreduce_tpu_torch/verify/sct.py (extract_sct_lane).
+// issuer_key_hash: [n, 32] per-lane SHA-256(issuer SPKI), or null
+// (every lane hashes as all-zero — no issuer chain).
+void ctmr_extract_scts_v2(
+    int64_t n,
+    const uint8_t* data, int64_t pad_len,
+    const int32_t* length,
+    const uint8_t* issuer_key_hash,  // [n, 32] or null
+    uint8_t* ok,
+    uint8_t* digest,      // [n, 32]
+    uint8_t* log_id,      // [n, 32]
+    int64_t* timestamp_ms,
+    uint8_t* r_out,       // [n, 32]
+    uint8_t* s_out,       // [n, 32]
+    uint8_t* hash_alg,
+    uint8_t* sig_alg) {
+  static const uint8_t kZeroIkh[32] = {0};
+  for (int64_t i = 0; i < n; ++i) {
+    ok[i] = 0;
+    int64_t len = length[i];
+    if (len <= 0 || len > pad_len) continue;
+    const uint8_t* der = data + i * pad_len;
+    sctext::ExtWin w = sctext::find_sct_extension(der, len);
+    if (!w.found) continue;
+    sctext::SctFields f =
+        sctext::parse_sct_list(der + w.val_off, w.val_end - w.val_off);
+    if (!f.ok) continue;
+    const uint8_t* ikh =
+        issuer_key_hash ? issuer_key_hash + i * 32 : kZeroIkh;
+    if (!sctext::digest_precert(der, len, f, ikh, digest + i * 32))
+      continue;
+    for (int j = 0; j < 32; ++j) log_id[i * 32 + j] = f.log_id[j];
+    timestamp_ms[i] = f.timestamp;
+    hash_alg[i] = (uint8_t)f.hash_alg;
+    sig_alg[i] = (uint8_t)f.sig_alg;
+    if (f.version != 0 || f.hash_alg != 4 || f.sig_alg != 3) {
+      ok[i] = 2;
+      continue;
+    }
+    if (!sctext::parse_ecdsa_sig32(f.sig, f.sig_len, r_out + i * 32,
+                                   s_out + i * 32)) {
+      ok[i] = 2;
+      continue;
+    }
+    ok[i] = 1;
+  }
+}
+
+void ctmr_extract_scts_v2_mt(
+    int64_t n,
+    const uint8_t* data, int64_t pad_len,
+    const int32_t* length,
+    const uint8_t* issuer_key_hash,
+    uint8_t* ok, uint8_t* digest, uint8_t* log_id,
+    int64_t* timestamp_ms, uint8_t* r_out, uint8_t* s_out,
+    uint8_t* hash_alg, uint8_t* sig_alg,
+    int64_t threads) {
+  if (n <= 0) return;
+  int T = (int)threads;
+  if (T < 1) T = 1;
+  if ((int64_t)T > n) T = (int)n;
+  pool::WorkerPool::get().run(T, T, [&](int t) {
+    int64_t lo = n * t / T, hi = n * (t + 1) / T;
+    ctmr_extract_scts_v2(
+        hi - lo, data + lo * pad_len, pad_len, length + lo,
+        issuer_key_hash ? issuer_key_hash + lo * 32 : nullptr,
+        ok + lo, digest + lo * 32, log_id + lo * 32, timestamp_ms + lo,
+        r_out + lo * 32, s_out + lo * 32, hash_alg + lo, sig_alg + lo);
+  });
+}
+
+}  // extern "C"

@@ -1,6 +1,6 @@
-"""Batch leaf decoding, DER packing and sidecar extraction on top of
-the native library (a copy of ``ct_mapreduce_tpu.native.leafpack``
-without its SCT extraction, which belongs to the verify lane).
+"""Batch leaf decoding, DER packing, sidecar extraction and embedded-SCT
+extraction on top of the native library (a copy of
+``ct_mapreduce_tpu.native.leafpack``).
 
 ``decode_raw_batch`` takes one get-entries response worth of base64
 strings and produces the packed rows plus per-entry issuer DER — the
@@ -145,6 +145,65 @@ def extract_sidecars(data: np.ndarray, length: np.ndarray,
         spki_off=spki_off, spki_len=spki_len,
         crldp_off=crldp_off, crldp_len=crldp_len,
     )
+
+
+def extract_scts(data: np.ndarray, length: np.ndarray,
+                 threads: Optional[int] = None,
+                 issuer_key_hash: Optional[np.ndarray] = None):
+    """Embedded-SCT tuples for packed rows: a
+    :class:`ct_mapreduce_tpu_torch.verify.sct.SctBatch` — the host half
+    of the signature-verification lane (status / RFC 6962 precert digest
+    / log id / r / s per lane). ``issuer_key_hash``: uint8[n, 32]
+    per-lane SHA-256(issuer SPKI) signed into each digest (None →
+    all-zero lanes, no issuer chain). Native scanner when available
+    (``ctmr_extract_scts_v2``, lane-range threaded like the sidecar
+    pass), else the bit-identical pure-python mirror (also under
+    ``CTMR_NATIVE=0``)."""
+    from ct_mapreduce_tpu_torch.verify.sct import SctBatch, extract_scts_np
+
+    with trace.span("native.extract_scts", cat="native",
+                    entries=int(data.shape[0])):
+        lib = (None if os.environ.get("CTMR_NATIVE", "1") == "0"
+               else load_native())
+        if lib is None:
+            return extract_scts_np(data, length, issuer_key_hash)
+        n = int(data.shape[0])
+        data = np.ascontiguousarray(data, np.uint8)
+        length = np.ascontiguousarray(length, np.int32)
+        out = SctBatch.empty(n)
+        if n == 0:
+            return out
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        if issuer_key_hash is None:
+            ikh_ptr = ctypes.cast(None, u8p)
+        else:
+            issuer_key_hash = np.ascontiguousarray(issuer_key_hash, np.uint8)
+            if issuer_key_hash.shape != (n, 32):
+                raise ValueError(
+                    f"issuer_key_hash must be uint8[{n}, 32], got "
+                    f"{issuer_key_hash.shape}")
+            ikh_ptr = issuer_key_hash.ctypes.data_as(u8p)
+        t = resolve_threads(n, threads)
+        fn, extra = lib.ctmr_extract_scts_v2, ()
+        if t > 1:
+            fn, extra = lib.ctmr_extract_scts_v2_mt, (t,)
+        fn(
+            n, data.ctypes.data_as(u8p), data.shape[1],
+            length.ctypes.data_as(i32p),
+            ikh_ptr,
+            out.ok.ctypes.data_as(u8p),
+            out.digest.ctypes.data_as(u8p),
+            out.log_id.ctypes.data_as(u8p),
+            out.timestamp_ms.ctypes.data_as(i64p),
+            out.r.ctypes.data_as(u8p),
+            out.s.ctypes.data_as(u8p),
+            out.hash_alg.ctypes.data_as(u8p),
+            out.sig_alg.ctypes.data_as(u8p),
+            *extra,
+        )
+        return out
 
 
 def _assign_gid(gid_of: dict, group_issuers: list, der: bytes) -> int:

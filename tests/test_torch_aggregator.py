@@ -484,7 +484,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'serve.batcher', 'serve.cache', 'serve.client', 'cmd.ct_query',"
         " 'cmd.ct_getcert', 'filter', 'filter.cascade', 'filter.stream',"
         " 'filter.cache', 'filter.spill', 'filter.fused', 'filter.artifact',"
-        " 'ops.bloom', 'ops.bloom_cuda', 'cmd.ct_filter'):\n"
+        " 'ops.bloom', 'ops.bloom_cuda', 'cmd.ct_filter', 'ops.bigint',"
+        " 'ops.ecdsa', 'ops.ecdsa_cuda', 'verify', 'verify.host',"
+        " 'verify.sct', 'verify.lane'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and ("
         "m == 'ct_mapreduce_tpu' or m.startswith('ct_mapreduce_tpu.') "

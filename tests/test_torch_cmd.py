@@ -23,7 +23,8 @@ JAX side compiles each program once for the file. Report lines carry
 the cursor's wall-clock ``LastUpdateTime``, which is masked before the
 texts are compared. With ``emitFilter`` both packages' ct-fetch write
 the same ``.filter`` bytes in either format, and both ``ct-filter``
-CLIs build, inspect and query alike. Tolerance: exact equality.
+CLIs build, inspect and query alike; with ``verifySignatures`` both
+print the same SCT totals. Tolerance: exact equality.
 """
 
 import dataclasses
@@ -312,7 +313,6 @@ def test_mesh_shape_on_the_port(tmp_path, monkeypatch):
     ("numWorkers = 2", "item 12"), ("coordinatorBackend = solo", "item 12"),
     ("checkpointPeriod = 1s", "item 12"),
     ("emitFilter = true\nnumWorkers = 2", "item 12"),
-    ("verifySignatures = true", "item 11"),
     ("metricsPort = 9464", "item 14"), ("fleetMetrics = true", "item 14"),
     ("sloMaxIngestLag = 10", "item 14")])
 def test_unported_directives_raise(tmp_path, monkeypatch, directive, item):
@@ -324,6 +324,70 @@ def test_unported_directives_raise(tmp_path, monkeypatch, directive, item):
                    + directive + "\n")
     with pytest.raises(ValueError, match=item):
         tfetch.main(["-config", str(ini)], device="cpu")
+
+
+def test_ct_fetch_verify_signatures_matches_jax(tmp_path, monkeypatch,
+                                               capsys):
+    """``verifySignatures`` with ``verifyLogKeys`` over a log whose
+    leaves carry SCTs from two P-256 logs (some signatures corrupted,
+    some leaves without an SCT): both packages' ct-fetch print the same
+    storage-statistics reports with the generator's SCT totals, and each
+    report reads the other's checkpoint alike. ``CTMR_VERIFY_BATCH`` 32,
+    so the JAX side compiles one verify shape."""
+    from ct_mapreduce_tpu_torch.verify import lane as tlane
+    from ct_mapreduce_tpu_torch.verify import sct as tsct
+
+    for env in ("CTMR_VERIFY", "CTMR_VERIFY_KEYS",
+                "CTMR_VERIFY_PRECOMP_WINDOW", "CTMR_VERIFY_QTABLE_SIZE"):
+        monkeypatch.delenv(env, raising=False)
+    monkeypatch.setenv("CTMR_VERIFY_BATCH", "32")
+    signers = [tsct.EcSctSigner("cmd-a"), tsct.EcSctSigner("cmd-b")]
+    reg = tlane.LogKeyRegistry()
+    for sg in signers:
+        reg.register_signer(sg)
+    keys = tmp_path / "keys.json"
+    keys.write_text(reg.to_json())
+    certs, want = [], {"verified": 0, "failed": 0}
+    for i, (leaf, issuer) in enumerate(CERTS):
+        if i in (5, 9) or i % 4 == 3:  # the CA and expired leaves, and
+            certs.append((leaf, issuer))  # every fourth: no SCT
+            continue
+        bad = i % 5 == 0
+        certs.append((tsct.attach_sct(leaf, signers[i % 2], 10**12 + i,
+                                      corrupt_signature=bad,
+                                      issuer_der=issuer), issuer))
+        want["failed" if bad else "verified"] += 1
+    runs = {}
+    for pkg in PKG:
+        d = tmp_path / pkg
+        d.mkdir()
+        log = _log(pkg, certs)
+        _patch(monkeypatch, pkg, log)
+        ini = d / "ct.ini"
+        state = d / "agg.npz"
+        ini.write_text(_ini(f"logList = {log.url}", BASE_INI,
+                            f"aggStatePath = {state}",
+                            f"verifySignatures = true\n"
+                            f"verifyLogKeys = {keys}\n"))
+        assert _fetch(pkg, ["-config", str(ini), "-nobars"]) == 0
+        runs[pkg] = {"ini": ini, "state": state, "drain": _drain(str(state)),
+                     "v1": _report(pkg, ["-config", str(ini), "-v", "1"],
+                                   capsys),
+                     "json": json.loads(_report(
+                         pkg, ["-config", str(ini), "-json"], capsys))}
+    j, t = runs["jax"], runs["port"]
+    assert (t["drain"], t["v1"], t["json"]) == (j["drain"], j["v1"],
+                                                j["json"])
+    assert f"{want['verified']} scts verified" in t["v1"]
+    assert f"{want['failed']} scts failed" in t["v1"]
+    assert t["json"]["totals"]["sctsVerified"] == want["verified"]
+    assert t["json"]["totals"]["sctsFailed"] == want["failed"]
+    for pkg, other in (("jax", "port"), ("port", "jax")):
+        ini = runs[pkg]["ini"]
+        ini.write_text(ini.read_text().replace(str(runs[pkg]["state"]),
+                                               str(runs[other]["state"])))
+        assert _report(pkg, ["-config", str(ini), "-v", "1"],
+                       capsys) == runs[pkg]["v1"]
 
 
 def test_ct_fetch_requires_loglist(capsys):

@@ -1,6 +1,6 @@
 """The port on a CUDA card: each kernel (the fingerprint SHA-256, the
-DER walker, the ten probe stages, the Bloom bit-scatter K5) against its
-plain PyTorch version,
+DER walker, the ten probe stages, the Bloom bit-scatter K5, the ECDSA
+verify K6) against its plain PyTorch version,
 and the tensor-op layers on the card (both dedup-table layouts, the
 query plane's pinned views) against the same code on the CPU.
 Tolerance: exact equality (integer arithmetic throughout).
@@ -802,3 +802,168 @@ def test_filter_build_on_card_matches_cpu(cuda, fmt):
     cpu = build_artifact(state, fp_rate=0.01, use_device=True,
                          device="cpu", fmt=fmt).to_bytes()
     assert card == host == per_group == cpu
+
+
+# -- K6, the ECDSA verify -------------------------------------------------
+
+def _k6_case(curve: str, window: int, n: int, device, seed: int = 5):
+    """``n`` lanes of chip_smoke.py's phase 13 corpus (about 80% valid
+    signatures under 4 keys, the rest mutated or padding) on ``device``,
+    with the G table and Q-table slots of ``window``. Returns (ops, row
+    tensors, valid, key_idx, gtab, qtab) and the lanes as ints."""
+    import chip_smoke
+
+    from ct_mapreduce_tpu_torch.ops import ecdsa
+
+    ops = ecdsa.CURVE_OPS[curve]
+    rows, valid, key_idx, keys, lanes = chip_smoke.k6_corpus(ops.curve, n,
+                                                             seed)
+    gtab = qtab = None
+    if window:
+        gtab, _ = ecdsa.fixed_base_table(ops, window, device)
+        qtab = ecdsa.zero_qtable(32, ops.nbits // window, 1 << window,
+                                 ops.mod_p.nlimb, device)
+        for slot, (x, y) in enumerate(keys):
+            ecdsa.qtable_slot_set(qtab, slot, ecdsa.point_table_cached(
+                ops, window, x, y)[0])
+    args = [torch.from_numpy(a).to(device) for a in rows]
+    return (ops, args, torch.from_numpy(valid).to(device),
+            torch.from_numpy(key_idx).to(device), gtab, qtab), lanes
+
+
+def _k6(case, plain: bool):
+    from ct_mapreduce_tpu_torch.ops import ecdsa, ecdsa_cuda
+
+    ops, args, valid, key_idx, gtab, qtab = case
+    if gtab is None:
+        fn = ecdsa._verify_jacobian if plain else ecdsa_cuda.verify_jacobian
+        return fn(ops, *args, valid)
+    fn = ecdsa._verify_windowed if plain else ecdsa_cuda.verify_windowed
+    return fn(ops, *args, valid, key_idx, gtab, qtab)
+
+
+@pytest.mark.parametrize("curve", ["p256", "p384"])
+@pytest.mark.parametrize("window", [0, 2, 4, 8])
+def test_ecdsa_kernel_matches_plain(cuda, curve, window):
+    """K6 against its plain version at the lane's width (1,024), verdict
+    for verdict, and a sample against verify_ecdsa."""
+    from ct_mapreduce_tpu_torch.ops import ecdsa_cuda
+    from ct_mapreduce_tpu_torch.verify import host
+
+    case, lanes = _k6_case(curve, window, 1024, cuda)
+    before = ecdsa_cuda.LAUNCHES
+    got = _k6(case, False)
+    torch.cuda.synchronize()
+    assert ecdsa_cuda.LAUNCHES == before + 1
+    want = _k6(case, True)
+    assert torch.equal(got, want)
+    assert 0.6 < float(got.float().mean()) < 0.9
+    c = case[0].curve
+    lim = 1 << (8 * c.byte_len)
+    for i, (kind, dg, r, s, x, y) in enumerate(lanes[:8]):
+        assert bool(got[i]) == (kind != 9 and host.verify_ecdsa(
+            c, dg, r % lim, s % lim, x % lim, y % lim)), i
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_ecdsa_kernel_widths(cuda, window):
+    """The same lanes at widths 32, 1,024 and 2^16 (P-256): each
+    launch's verdicts are the prefix of the plain version's on 2^16."""
+    wide, _ = _k6_case("p256", window, 1 << 16, cuda)
+    want = _k6(wide, True)
+    for n in (32, 1024, 1 << 16):
+        ops, args, valid, key_idx, gtab, qtab = wide
+        case = (ops, [a[:n] for a in args], valid[:n], key_idx[:n], gtab,
+                qtab)
+        assert torch.equal(_k6(case, False), want[:n]), n
+
+
+@pytest.mark.parametrize("curve", ["p256", "p384"])
+@pytest.mark.parametrize("window", [0, 8])
+def test_ecdsa_kernel_bad_lane_never_moves_a_neighbour(cuda, curve, window):
+    """Adversarial lanes (r, s = 0 or n, off-curve and out-of-range keys,
+    a result at infinity's inputs, padding) between valid ones: every
+    valid lane's verdict equals the one it gets with the adversarial
+    lanes made padding."""
+    case, lanes = _k6_case(curve, window, 1024, cuda, seed=9)
+    mixed = _k6(case, False)
+    ops, args, valid, key_idx, gtab, qtab = case
+    kinds = torch.tensor([k for k, *_ in lanes], device=cuda)
+    clean_valid = valid & (kinds == 0)
+    alone = _k6((ops, args, clean_valid, key_idx, gtab, qtab), False)
+    assert torch.equal(mixed[kinds == 0], alone[kinds == 0])
+    assert not alone[kinds != 0].any()
+    assert mixed[kinds == 0].all()
+
+
+def test_ecdsa_kernel_checks_its_inputs(cuda):
+    from ct_mapreduce_tpu_torch.ops import ecdsa, ecdsa_cuda
+
+    (ops, args, valid, key_idx, gtab, qtab), _ = _k6_case("p256", 8, 64,
+                                                          cuda)
+    before = ecdsa_cuda.LAUNCHES
+    empty = ecdsa_cuda.verify_windowed(ops, *[a[:0] for a in args],
+                                       valid[:0], key_idx[:0], gtab, qtab)
+    assert empty.shape == (0,) and ecdsa_cuda.LAUNCHES == before
+    with pytest.raises(TypeError):
+        ecdsa_cuda.verify_jacobian(ops, *args, valid.to(torch.uint8))
+    with pytest.raises(ValueError, match="shape"):
+        ecdsa_cuda.verify_jacobian(ops, args[0][:, :16], *args[1:], valid)
+    with pytest.raises(ValueError):
+        ecdsa_cuda.verify_windowed(ops, *args, valid, key_idx, gtab.cpu(),
+                                   qtab)
+    with pytest.raises(ValueError, match="CUDA"):
+        ecdsa_cuda.verify_jacobian(ops, *[a.cpu() for a in args],
+                                   valid.cpu())
+    # The dispatch launches the kernel for CUDA tensors.
+    ecdsa.verify_jacobian(ops, *args, valid)
+    assert ecdsa_cuda.LAUNCHES == before + 1
+
+
+def test_verify_lane_on_card_matches_cpu(cuda):
+    """The verify lane on a CUDA aggregator (K6, tables on the card) and
+    on a CPU one (the plain versions) over the same SCT rows: equal
+    stats and per-issuer vectors, K6 launched."""
+    import datetime
+
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+    from ct_mapreduce_tpu_torch.ops import ecdsa_cuda
+    from ct_mapreduce_tpu_torch.utils import minicert
+    from ct_mapreduce_tpu_torch.verify import host, lane, sct
+
+    future = datetime.datetime(2031, 6, 15, tzinfo=datetime.timezone.utc)
+    signers = [sct.EcSctSigner("card-a"), sct.EcSctSigner("card-b", host.P384),
+               sct.RsaSctSigner()]
+    certs = []
+    for i in range(12):
+        base = minicert.make_cert(serial=100 + i, issuer_cn="Card CA",
+                                  subject_cn=f"c{i}", not_after=future)
+        certs.append(sct.attach_sct(base, signers[i % 3], 10**12 + i,
+                                    corrupt_signature=i % 4 == 1))
+    pad = max(len(c) for c in certs) + 16
+    data = np.zeros((len(certs), pad), np.uint8)
+    length = np.zeros((len(certs),), np.int32)
+    for i, c in enumerate(certs):
+        data[i, : len(c)] = np.frombuffer(c, np.uint8)
+        length[i] = len(c)
+    scts = sct.extract_scts_np(data, length)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        agg = TorchAggregator(capacity=1 << 10, device=dev)
+        for window in (8, 0):
+            v = lane.SignatureVerifier(agg, batch_width=32, window=window)
+            for sg in signers:
+                v.keys.register_signer(sg)
+            before = ecdsa_cuda.LAUNCHES
+            v.submit_chunk(scts, np.arange(len(certs)) % 2,
+                           np.ones((len(certs),), bool), data, length)
+            v.drain()
+            if dev.type == "cuda":
+                assert ecdsa_cuda.LAUNCHES > before
+            out[(dev.type, window)] = dict(v.stats)
+        out[dev.type] = (agg.verify_verified.copy(), agg.verify_failed.copy())
+    for window in (8, 0):
+        assert out[("cuda", window)] == out[("cpu", window)]
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    assert out[("cuda", 8)]["verified"] == 9 and out[("cuda", 8)]["failed"] == 3

@@ -321,11 +321,18 @@ def test_build_sink_reads_the_config(tmp_path, monkeypatch, ini):
 
 
 def test_unported_options_raise():
-    """The verify lane is the sink option still to port; the overlap
-    pipeline and the PEM backend (ported with the CLIs) build."""
+    """Every sink option builds: the verify lane (its verifier on the
+    aggregator's device, the JAX sink's knobs), the overlap pipeline and
+    the PEM backend."""
+    from ct_mapreduce_tpu_torch.verify.lane import SignatureVerifier
+
     agg = TorchAggregator(capacity=CAP, device="cpu")
-    with pytest.raises(ValueError, match="item 11"):
-        tsync.AggregatorSink(agg, verify_signatures=True)
+    vsink = tsync.AggregatorSink(agg, verify_signatures=True,
+                                 verify_precomp_window=0,
+                                 verify_qtable_size=3)
+    assert isinstance(vsink.verifier, SignatureVerifier)
+    assert vsink.verifier.device == agg.device
+    assert (vsink.verifier.window, vsink.verifier.qtable_size) == (0, 3)
     sink = tsync.AggregatorSink(agg, overlap_workers=2, backend=object())
     assert sink._overlap is not None and agg.want_serials
     sink.close()

@@ -79,7 +79,7 @@ Phases, none of them caught — any failure exits non-zero:
    server in a process of its own (``utils/fakelog.py`` over
    ``http.server`` on 127.0.0.1, started first so it builds its log
    while phases 1-9 run) serves phase 8's stream as 1,000-entry
-   get-entries pages, 1,048,576 entries; ct-fetch downloads it over the
+   get-entries pages, 786,432 entries; ct-fetch downloads it over the
    client's urllib transport with ``backend = tpu``, ``batchSize``
    65,536, ``tableBits`` 19 (it grows once), ``deviceQueueDepth`` 2 and
    ``aggStatePath``: (a) unstaged, its ``storage-statistics -v 1`` and
@@ -87,9 +87,9 @@ Phases, none of them caught — any failure exits non-zero:
    staged (``chunksPerDispatch`` 8, ``stagingDepth`` 2), each from an
    empty state; every drain (on the card and from the checkpoint) held
    to the oracle and to the others, every pool within its bound; (d)
-   with ``certPath``, 131,072 entries, then the log grows to 262,144
+   with ``certPath``, 65,536 entries, then the log grows to 131,072
    and ct-fetch resumes from the cursor in the PEM tree's state file
-   and from ``aggStatePath`` to the drain of one run over all 262,144
+   and from ``aggStatePath`` to the drain of one run over all 131,072
    and the oracle's, with one PEM file per first-seen serial, each
    decoding to its leaf;
 11. the serve plane on the card: (i) a ``QueryServer`` on port 0 over
@@ -131,8 +131,13 @@ Phases, none of them caught — any failure exits non-zero:
    on 1,024 lanes (the lane's ``verifyBatch``) and 2^16 (about 80% valid
    signatures under 4 keys, the rest r or s 0 or n, s + 1, keys off the
    curve or past p, wrong digests and padding lanes), a sample against
-   ``verify_ecdsa``, K6 timed with CUDA events beside its operations
-   bound (multiplies counted from its loops for these lanes); (a)
+   ``verify_ecdsa``, and at widths that cut a thread group or a block
+   (1, 3, 31, 127, 129, 1,023, 1,025); the edge lanes (a block of
+   failed checks, one good lane among bad ones, results at infinity,
+   u1 G = u2 Q) against the plain version and ``verify_ecdsa``; K6
+   timed with CUDA events beside its operations bound (the multiplies
+   the function it replaces needs for these lanes, K6's own beside
+   them); (a)
    verify-sink: 131,072 entries whose leaves carry SCTs (two P-256 logs
    ~70%, a P-384 log ~10%, an RSA log ~5%, an unregistered log ~5%, no
    SCT ~10%, 1% of the ECDSA signatures corrupted) through the
@@ -289,9 +294,9 @@ def sass_report(out_dir: str) -> dict:
     for name, lib in kernel_libs().items():
         so = os.path.join(out_dir, f"{name}_ptxas.so")
         res = subprocess.run(
-            [nvcc, *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
-             lib.path], capture_output=True, text=True, timeout=600,
-            check=True)
+            [nvcc, *cuda_build.NVCC_FLAGS, *lib.flags, "-Xptxas", "-v",
+             "-o", so, lib.path], capture_output=True, text=True,
+            timeout=600, check=True)
         ptxas = res.stdout + res.stderr
         sass = subprocess.run(
             [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", so],
@@ -303,10 +308,20 @@ def sass_report(out_dir: str) -> dict:
             r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
             sass, re.M))
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
+        kernels = {m.group(1)[-90:]: {"registers": int(m.group(5)),
+                                      "stack_bytes": int(m.group(2)),
+                                      "spill_store_bytes": int(m.group(3)),
+                                      "spill_load_bytes": int(m.group(4))}
+                   for m in re.finditer(
+                       r"Function properties for (\S+)\n\s+(\d+) bytes "
+                       r"stack frame, (\d+) bytes spill stores, (\d+) "
+                       r"bytes spill loads\n.*?Used (\d+) registers",
+                       ptxas)}
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", ptxas)]
         spill_loads = [int(x) for x in re.findall(r"(\d+) bytes spill loads", ptxas)]
         mem = {op: ops.get(op, 0) for op in MEMORY_OPCODES}
         report[name] = {"registers_max": max(regs, default=None),
+                        "kernels": kernels,
                         "spill_store_bytes": sum(spills),
                         "spill_load_bytes": sum(spill_loads),
                         "memory_ops": mem,
@@ -316,12 +331,122 @@ def sass_report(out_dir: str) -> dict:
               f"registers, {sum(spills)} B spill stores, {sum(spill_loads)} "
               f"B spill loads, {report[name]['instructions']} instructions; "
               f"{mem}; {dict(ops.most_common(8))}", flush=True)
+    for kname, k in report["k6"]["kernels"].items():
+        print(f"sass k6 kernel ...{kname[-60:]}: {k}", flush=True)
+        check(k["spill_store_bytes"] == 0 and k["spill_load_bytes"] == 0,
+              f"a K6 kernel spills: {kname} {k}")
+    k6 = kernel_libs()["k6"]
+    report["k6"]["product"] = k6_product_sass(k6.path, out_dir, k6.flags)
     k3 = report["k3"]
     check(k3["spill_store_bytes"] == 0 and k3["spill_load_bytes"] == 0
           and k3["memory_ops"]["LDL"] == 0 and k3["memory_ops"]["STL"] == 0,
           "the walker kernel uses local memory (spills or a register array "
           "indexed at run time)")
     return report
+
+
+# K6's Montgomery product alone: a kernel that loads two field elements,
+# multiplies them mod p once (twice) and stores the product, for each of
+# the source's kernel shapes (``Spec``: limbs, threads a signature,
+# signatures a block) or, in K6's first design, for whole NL-limb
+# elements, one thread a signature. The two kernels differ by one
+# product.
+K6_PRODUCT_PROBE = """
+#include "{src}"
+namespace {{
+template <{param}, int kProducts>
+__global__ void k6_product_probe(uint32_t* io) {{
+{body}
+}}
+}}  // namespace
+extern "C" void ctmr_k6_product_probe(uint32_t* io) {{
+{launches}
+}}
+"""
+K6_PRODUCT_BODY_GROUP = """
+  const Group<S> g(threadIdx.x);
+  Limbs<S> a, b;
+  for (int k = 0; k < S::L; ++k) {
+    a[k] = io[threadIdx.x * 2 * S::L + k];
+    b[k] = io[threadIdx.x * 2 * S::L + S::L + k];
+  }
+#pragma unroll
+  for (int i = 0; i < kProducts; ++i) mont_mul<S, kP>(g, a, a, b);
+  for (int k = 0; k < S::L; ++k) io[threadIdx.x * 2 * S::L + k] = a[k];"""
+K6_PRODUCT_BODY_THREAD = """
+  uint32_t a[NL], b[NL];
+  for (int k = 0; k < NL; ++k) {
+    a[k] = io[threadIdx.x * 2 * NL + k];
+    b[k] = io[threadIdx.x * 2 * NL + NL + k];
+  }
+#pragma unroll
+  for (int i = 0; i < kProducts; ++i) mont_mul<NL, kP>(a, a, b);
+  for (int k = 0; k < NL; ++k) io[threadIdx.x * 2 * NL + k] = a[k];"""
+K6_SHAPES = ("P256W", "P384W", "P256J", "P384J")
+
+
+def k6_product_sass(src: str, out_dir: str, flags=()) -> dict:
+    """SASS instructions of one Montgomery product mod p of ``src`` (a
+    K6 source) for each of its kernel shapes: the probe kernel with two
+    products less the one with one, by opcode; per thread and, times the
+    threads a signature, per signature. ``flags`` go to ``nvcc`` after
+    NVCC_FLAGS, as the library's own."""
+    import collections
+    import re
+
+    from ct_mapreduce_tpu_torch.ops import cuda_build
+
+    with open(src) as f:
+        group = "struct Spec" in f.read()
+    args = K6_SHAPES if group else ("8", "12")
+    probe = os.path.join(out_dir, "k6_product_probe.cu")
+    with open(probe, "w") as f:
+        f.write(K6_PRODUCT_PROBE.format(
+            src=os.path.abspath(src),
+            param="class S" if group else "int NL",
+            body=K6_PRODUCT_BODY_GROUP if group else K6_PRODUCT_BODY_THREAD,
+            launches="\n".join(f"  k6_product_probe<{a}, {k}><<<1, 32>>>(io);"
+                               for a in args for k in (1, 2))))
+    nvcc = cuda_build.nvcc()
+    so = os.path.join(out_dir, "k6_product_probe.so")
+    res = subprocess.run([nvcc, *cuda_build.NVCC_FLAGS, *flags, "-o", so,
+                          probe], capture_output=True, text=True, timeout=900)
+    check(res.returncode == 0,
+          f"the K6 product probe did not build: {res.stderr[-2000:]}")
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", so],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    os.remove(so)
+    parts = [p for p in re.split(r"\n\s+Function : ", sass)[1:]
+             if re.search(r"\d+k6_product_probeI", p.split("\n", 1)[0])]
+    with open(os.path.join(out_dir, "k6_product_sass.txt"), "w") as f:
+        f.write("\n\tFunction : ".join([""] + parts))
+    funcs = {}
+    for part in parts:
+        name = part.split("\n", 1)[0].strip()
+        ops = collections.Counter(
+            x.group(1).split(".")[0] for x in re.finditer(
+                r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                r"([A-Z][A-Z0-9_.]*)", part, re.M))
+        m = re.search(r"SpecILi(\d+)ELi(\d+)ELi\d+E", name)
+        nl, g = (int(m.group(1)), int(m.group(2))) if m else (
+            8 if "ILi8E" in name else 12, 1)
+        k = int(re.search(r"Li(\d+)EE+vPj", name).group(1))
+        funcs[(nl, g, k)] = ops
+    out = {}
+    for nl, g in sorted({(nl, g) for nl, g, _k in funcs}):
+        diff = funcs[(nl, g, 2)].copy()
+        diff.subtract(funcs[(nl, g, 1)])
+        n_thread = sum(diff.values())
+        name = f"{'p256' if nl == 8 else 'p384'}_g{g}"
+        out[name] = {"threads_a_signature": g, "per_thread": n_thread,
+                     "per_signature": n_thread * g,
+                     "by_opcode": {op: c for op, c in diff.most_common()
+                                   if c}}
+        print(f"sass k6 product {name}: {n_thread} instructions a thread, "
+              f"{n_thread * g} a signature; {dict(diff.most_common(6))}",
+              flush=True)
+    return out
 
 
 # -- phase 2: the kernel against its plain version ----------------------
@@ -1479,15 +1604,17 @@ def checkpoints(device, staged_model, staged_drain, seed: int) -> dict:
 # -- phase 10: ct-fetch on the card -------------------------------------
 
 FETCH_CHUNK = SINK_BATCH  # entries the log server makes a stream call
-# Entries in the served log: 16 chunks (32 before phase 12 came, 24 before
-# phase 13; cut so
-# that the script stays near half its time limit). Each run over it
-# still grows its table once.
-FETCH_ENTRIES = 16 * (1 << 16)
+# Entries in the served log: 12 chunks (32 before phase 12 came, 24 before
+# phase 13, 16 before phase 13's edge lanes; cut so that the script
+# stays under its time limit on slower hosts). Each run over it still
+# grows its table once (about 625,000 unique serials against the grow
+# load of 0.55 x 786,432 slots).
+FETCH_ENTRIES = 12 * (1 << 16)
 FETCH_TABLE_BITS = 19  # 786,432 slots: each run over the log grows once
 # (d): the log at the first run, grown. Cut from (2^17, 2^18) so the
 # script, phases 5b and 11 included, stays near half its time limit: the
-# PEM tree's file writes are most of a (d) run.
+# PEM tree's file writes are most of a (d) run. Both are multiples of
+# FETCH_CHUNK, where fetch_oracle marks the truth.
 RESUME_ENTRIES = (1 << 16, 1 << 17)
 # The directives of each run over the whole log, beside the common ones.
 FETCH_RUNS = {
@@ -3087,6 +3214,8 @@ def filter_phase(device, seed: int, plain_batch_s: list, part_url: str,
 # -- phase 13: signature verification on the card ------------------------
 
 K6_WIDTHS = (1 << 10, 1 << 16)  # verifyBatch's default; a card-filling batch
+# Widths that cut a thread group or a block of K6 (checked, not timed).
+K6_EDGE_WIDTHS = (1, 3, 31, 127, 129, 1023, 1025)
 K6_KEYS = 4  # log keys a curve in (0)'s corpus
 K6_NONCES = 8  # fixed nonces a key (see FixedNonceSigner)
 K6_HOST_SAMPLE = 16  # lanes of each curve held to verify_ecdsa
@@ -3133,6 +3262,19 @@ def _fixed_nonce_signer():
     return FixedNonceSigner
 
 
+_K6_SIGNERS: dict = {}
+
+
+def _k6_signers(curve) -> list:
+    """The K6_KEYS fixed-nonce signers of (0)'s corpora for ``curve``,
+    made once."""
+    if curve.name not in _K6_SIGNERS:
+        signer_cls = _fixed_nonce_signer()
+        _K6_SIGNERS[curve.name] = [signer_cls(f"k6-{curve.name}-{k}", curve)
+                                   for k in range(K6_KEYS)]
+    return _K6_SIGNERS[curve.name]
+
+
 def k6_corpus(curve, n: int, seed: int):
     """(0)'s lanes for ``curve``: about 80% valid signatures under
     K6_KEYS keys, the rest mutated — r or s 0 or n, s + 1, a key off the
@@ -3142,9 +3284,7 @@ def k6_corpus(curve, n: int, seed: int):
     y) as ints for the host checks and the bound's count."""
     import numpy as np
 
-    signer_cls = _fixed_nonce_signer()
-    signers = [signer_cls(f"k6-{curve.name}-{k}", curve)
-               for k in range(K6_KEYS)]
+    signers = _k6_signers(curve)
     rng = np.random.default_rng(seed + 1300 + curve.byte_len)
     bl = curve.byte_len
     digests = rng.integers(0, 256, (n, 32), dtype=np.uint8)
@@ -3173,6 +3313,18 @@ def k6_corpus(curve, n: int, seed: int):
         elif k == 8:
             r = curve.n
         lanes.append((k, dg, r, s, x, y))
+    key_idx = [i % K6_KEYS if lanes[i][0] not in (4, 5) else 0
+               for i in range(n)]
+    return (*_k6_rows(curve, lanes, key_idx), [sg.q for sg in signers],
+            lanes)
+
+
+def _k6_rows(curve, lanes, key_idx):
+    """Byte rows (digest left-padded, r, s, qx, qy), valid (kind 9 is a
+    padding lane) and key slots of (kind, d, r, s, x, y) lanes."""
+    import numpy as np
+
+    n, bl = len(lanes), curve.byte_len
     lim = 1 << (8 * bl)
 
     def rows(vals):
@@ -3184,28 +3336,85 @@ def k6_corpus(curve, n: int, seed: int):
     digest[:, bl - 32:] = np.frombuffer(b"".join(ln[1] for ln in lanes),
                                         np.uint8).reshape(n, 32)
     out = [digest] + [rows([ln[j] for ln in lanes]) for j in (2, 3, 4, 5)]
-    valid = np.array([ln[0] != 9 for ln in lanes])  # kind 9: padding
-    key_idx = np.array([i % K6_KEYS if lanes[i][0] not in (4, 5) else 0
-                        for i in range(n)], np.int32)
-    return out, valid, key_idx, [sg.q for sg in signers], lanes
+    valid = np.array([ln[0] != 9 for ln in lanes])
+    return out, valid, np.array(key_idx, np.int32)
+
+
+def k6_edge_corpus(curve, seed: int, block: int = 0):
+    """The edge lanes of (0) for ``curve``, in runs of ``block`` lanes
+    (by default K6's widest block, so that a run covers whole blocks of
+    either ladder): (i) every lane fails a check (r or s 0 or n, keys off
+    the curve, past p or (0, 0), padding); (ii) one good lane among s =
+    0, r = n and off-curve lanes; then (at most 32 lanes each) (iii)
+    results at infinity, Q = G and r = -e mod n, and (iv) Q = G and r =
+    e mod n (u1 G = u2 Q, the sum a doubling), between good lanes. Returns what
+    k6_corpus does; key slot K6_KEYS is G."""
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch.ops import ecdsa_cuda
+    from ct_mapreduce_tpu_torch.verify import host
+
+    signers = _k6_signers(curve)
+    rng = np.random.default_rng(seed + 1400 + curve.byte_len)
+    b = block or max(ecdsa_cuda.block_lanes(w) for w in (8, 0))
+    bad = (1, 2, 4, 5, 7, 8, 9, 12)  # 12: the key (0, 0)
+    kinds = ([bad[i % len(bad)] for i in range(b)]
+             + [(7, 8, 4)[i % 3] for i in range(b)])
+    kinds[b + b // 3] = 0
+    kinds += [10 if i % 2 else 0 for i in range(min(b, 32))]
+    kinds += [11 if i % 2 else 0 for i in range(min(b, 32))]
+    lanes, key_idx = [], []
+    for i, k in enumerate(kinds):
+        sg = signers[i % K6_KEYS]
+        dg = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+        r, s = sg.sign_rs(dg)
+        x, y = sg.q
+        slot = i % K6_KEYS
+        if k in (10, 11):
+            e = host.digest_to_z(curve, dg) % curve.n
+            r = (-e if k == 10 else e) % curve.n or 1
+            s = int(rng.integers(1, 1 << 62))
+            x, y, slot = curve.gx, curve.gy, K6_KEYS
+        elif k == 1:
+            r = 0
+        elif k == 2:
+            s = curve.n
+        elif k == 4:
+            y ^= 1
+        elif k == 5:
+            x = curve.p + (x & 0xFFFF)
+        elif k == 7:
+            s = 0
+        elif k == 8:
+            r = curve.n
+        elif k == 12:
+            x = y = 0
+        lanes.append((k, dg, r, s, x, y))
+        key_idx.append(slot)
+    keys = [sg.q for sg in signers] + [(curve.gx, curve.gy)]
+    return (*_k6_rows(curve, lanes, key_idx), keys, lanes)
 
 
 def k6_bound(ops, window: int, lanes, valid) -> dict:
     """K6's least time on these lanes: the multiply instructions that the
-    function it replaces needs for this data (ecdsa_cuda.products_needed:
-    the windowed ladder's two inversions are batch inversions there) over
-    the INT32 rate, against the bytes it must move (the five rows, valid,
+    function it replaces needs for this data (ecdsa_cuda.products a lane:
+    s and Z by batch inversion, one Fermat chain each a batch) over the
+    INT32 rate, against the bytes it must move (the five rows, valid,
     key index and verdict of each lane, and the G table once) over the
-    HBM rate. The products K6's own loops execute (a Fermat inversion a
-    lane) are counted beside it."""
-    from ct_mapreduce_tpu_torch.verify import host
+    HBM rate. The products K6's own loops execute are counted beside it:
+    the same a lane, and its product trees a block
+    (ecdsa_cuda.block_products), whose roots it inverts by binary GCD
+    (ecdsa_cuda.block_gcds); every live lane counted as a result not at
+    infinity."""
+    import numpy as np
 
     from ct_mapreduce_tpu_torch.ops import ecdsa_cuda
+    from ct_mapreduce_tpu_torch.verify import host
 
     c = ops.curve
-    need = run = 0
-    any_ok = False
-    for (_k, dg, r, s, x, y), v in zip(lanes, valid):
+    need = 0
+    live = np.zeros(len(lanes), bool)
+    for i, ((_k, dg, r, s, x, y), v) in enumerate(zip(lanes, valid)):
         lim = 1 << (8 * c.byte_len)
         r, s, x, y = r % lim, s % lim, x % lim, y % lim
         if not v or not (0 < r < c.n and 0 < s < c.n and x < c.p
@@ -3213,17 +3422,17 @@ def k6_bound(ops, window: int, lanes, valid) -> dict:
             continue
         on = (y * y - x * x * x + 3 * x - c.b) % c.p == 0
         if not on:
-            need += ecdsa_cuda.products_needed(ops, window, False)
-            run += ecdsa_cuda.products(ops, window, False)
+            need += ecdsa_cuda.products(ops, window, False)
             continue
         w = pow(s, -1, c.n)
         z = host.digest_to_z(c, dg) % c.n
-        u1, u2 = z * w % c.n, r * w % c.n
-        need += ecdsa_cuda.products_needed(ops, window, True, u1, u2)
-        run += ecdsa_cuda.products(ops, window, True, u1, u2)
-        any_ok = True
-    if any_ok:
-        need += ecdsa_cuda.batch_products_needed(ops, window)
+        need += ecdsa_cuda.products(ops, window, True, z * w % c.n,
+                                    r * w % c.n)
+        live[i] = True
+    run = need + ecdsa_cuda.block_products(ops, window, live, live)
+    gcds = ecdsa_cuda.block_gcds(window, live, live)
+    if live.any():
+        need += ecdsa_cuda.batch_products_needed(ops)
     muls = ecdsa_cuda.muls_per_product(ops)
     ops_ms = need * muls / INT32_OPS_PER_S * 1e3
     entries = 1 << window if window else 0
@@ -3233,8 +3442,54 @@ def k6_bound(ops, window: int, lanes, valid) -> dict:
     return {"bound_ms": max(ops_ms, byte_ms),
             "bound_by": "operations" if ops_ms >= byte_ms else "bytes",
             "ops_bound_ms": ops_ms, "bytes_bound_ms": byte_ms,
-            "products": need, "executed_products": run,
+            "products": need, "executed_products": run, "gcd_inversions": gcds,
             "executed_ops_ms": run * muls / INT32_OPS_PER_S * 1e3}
+
+
+def k6_edge_check(ops, device, seed: int) -> dict:
+    """K6 on k6_edge_corpus's lanes at windows 8 and 0: every verdict
+    equal to the plain version's and to verify_ecdsa's."""
+    import torch
+
+    from ct_mapreduce_tpu_torch.ops import ecdsa, ecdsa_cuda
+    from ct_mapreduce_tpu_torch.verify import host
+
+    c = ops.curve
+    rows, valid, key_idx, keys, lanes = k6_edge_corpus(c, seed)
+    lim = 1 << (8 * c.byte_len)
+    truth = [bool(v) and host.verify_ecdsa(c, dg, r % lim, s % lim,
+                                           x % lim, y % lim)
+             for v, (_k, dg, r, s, x, y) in zip(valid, lanes)]
+    args = [torch.from_numpy(a).to(device) for a in rows] + [
+        torch.from_numpy(valid).to(device)]
+    err = 0
+    for window in (8, 0):
+        if window:
+            gtab, _ = ecdsa.fixed_base_table(ops, window, device)
+            qtab = ecdsa.zero_qtable(len(keys), ops.nbits // window,
+                                     1 << window, ops.mod_p.nlimb, device)
+            for slot, (x, y) in enumerate(keys):
+                ecdsa.qtable_slot_set(qtab, slot, ecdsa.point_table_cached(
+                    ops, window, x, y)[0])
+            extra = [torch.from_numpy(key_idx).to(device), gtab, qtab]
+            got = ecdsa_cuda.verify_windowed(ops, *args, *extra)
+            want = ecdsa._verify_windowed(ops, *args, *extra)
+        else:
+            got = ecdsa_cuda.verify_jacobian(ops, *args)
+            want = ecdsa._verify_jacobian(ops, *args)
+        torch.cuda.synchronize()
+        e = int((got != want).sum())
+        check(e == 0, f"K6 {c.name} w{window} on the edge lanes: {e} "
+              "verdicts differ from the plain version")
+        check(want.cpu().tolist() == truth, f"K6 {c.name} w{window}: the "
+              "plain version differs from verify_ecdsa on the edge lanes")
+        err += e
+    print(f"phase 13 (0): K6 {c.name} windows 8 and 0 == plain == "
+          f"verify_ecdsa on {len(lanes)} edge lanes ({sum(truth)} verified: "
+          "a block of failed checks, one good lane among bad ones, results "
+          "at infinity, u1 G = u2 Q)", flush=True)
+    return {"lanes": len(lanes), "max_abs_err": err,
+            "verified": sum(truth)}
 
 
 def k6_check(device, seed: int) -> dict:
@@ -3251,6 +3506,11 @@ def k6_check(device, seed: int) -> dict:
 
     out = {}
     wide = K6_WIDTHS[-1]
+    for window in (8, 0):
+        check(ecdsa_cuda.lanes_per_block(window)
+              == ecdsa_cuda.block_lanes(window),
+              f"K6's signatures a block at window {window} differ from the "
+              "count's ecdsa_cuda.block_lanes")
     for ops in (ecdsa.P256_OPS, ecdsa.P384_OPS):
         c = ops.curve
         t0 = time.perf_counter()
@@ -3300,6 +3560,12 @@ def k6_check(device, seed: int) -> dict:
             check(got_host == [host_want[i] for i in range(K6_HOST_SAMPLE)],
                   f"K6 {c.name} w{window}: the plain version differs from "
                   "verify_ecdsa")
+            for n in K6_EDGE_WIDTHS:
+                got = run(n, kern)
+                torch.cuda.synchronize()
+                err = int((got != want[:n]).sum())
+                check(err == 0, f"K6 {c.name} w{window} at {n} lanes: {err} "
+                      "verdicts differ from the plain version")
             for n in K6_WIDTHS:
                 got = run(n, kern)
                 torch.cuda.synchronize()
@@ -3330,6 +3596,7 @@ def k6_check(device, seed: int) -> dict:
                       flush=True)
             del want
         del dev_rows
+        out[f"{c.name}_edge"] = k6_edge_check(ops, device, seed)
     # The plain version at the lane's width, P-256 window 8 (the default).
     ops = ecdsa.P256_OPS
     rows, valid, key_idx, keys, _lanes = k6_corpus(ops.curve, K6_WIDTHS[0],

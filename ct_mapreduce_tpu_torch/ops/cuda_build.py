@@ -38,12 +38,14 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found; the CUDA kernels cannot build")
 
 
-def build(source: str, headers: tuple[str, ...] = ()) -> str:
-    """Compile ``csrc/<source>`` unless a build of this exact source,
-    these headers and these flags exists; returns the library's path.
-    Raises with the compiler's output when the build fails."""
+def build(source: str, headers: tuple[str, ...] = (),
+          flags: tuple[str, ...] = ()) -> str:
+    """Compile ``csrc/<source>`` with NVCC_FLAGS and ``flags`` unless a
+    build of this exact source, these headers and these flags exists;
+    returns the library's path. Raises with the compiler's output when
+    the build fails."""
     src = os.path.join(CSRC, source)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
     for path in (src, *(os.path.join(CSRC, x) for x in headers)):
         with open(path, "rb") as f:
             h.update(f.read())
@@ -52,7 +54,7 @@ def build(source: str, headers: tuple[str, ...] = ()) -> str:
     if os.path.exists(so):
         return so
     tmp = f"{so}.build.{os.getpid()}"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, src]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(
@@ -64,11 +66,14 @@ def build(source: str, headers: tuple[str, ...] = ()) -> str:
 
 class Library:
     """One kernel library, built and loaded at first use; ``bind`` sets
-    the C entry points' argument types."""
+    the C entry points' argument types, ``flags`` go to ``nvcc`` after
+    NVCC_FLAGS."""
 
     def __init__(self, source: str, headers: tuple[str, ...],
-                 bind: Callable[[ctypes.CDLL], None]) -> None:
+                 bind: Callable[[ctypes.CDLL], None],
+                 flags: tuple[str, ...] = ()) -> None:
         self.source, self.headers, self._bind = source, headers, bind
+        self.flags = flags
         self._lock = threading.Lock()
         self._lib: Optional[ctypes.CDLL] = None
 
@@ -77,7 +82,7 @@ class Library:
         return os.path.join(CSRC, self.source)
 
     def build(self) -> str:
-        return build(self.source, self.headers)
+        return build(self.source, self.headers, self.flags)
 
     def get(self) -> ctypes.CDLL:
         with self._lock:

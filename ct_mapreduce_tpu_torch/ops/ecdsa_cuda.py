@@ -9,7 +9,9 @@ plain PyTorch versions beside it are
 :func:`~ct_mapreduce_tpu_torch.ops.ecdsa._verify_jacobian`. Each curve's
 constants (moduli, Montgomery constants, b, G and the Fermat exponents
 as 32-bit limbs) are copied into the kernel's constant memory once per
-device, before the first launch.
+device, before the first launch. The kernel verifies a signature with a
+group of threads, :func:`block_lanes` signatures a block, whose s and Z
+it inverts by one batch inversion each; it allocates nothing.
 """
 
 from __future__ import annotations
@@ -29,11 +31,18 @@ from ct_mapreduce_tpu_torch.ops.cuda_build import check_tensor
 LAUNCHES = 0
 
 CURVE_INDEX = {"p256": 0, "p384": 1}  # the kernel's constant slot
+# Signatures a block (``kSigsW`` / ``kSigsJ`` in the kernel) of the
+# windowed and the window-0 ladder: the width of their batch
+# inversions. :func:`lanes_per_block` reads the built kernel's.
+WINDOWED_LANES_PER_BLOCK = 64
+JACOBIAN_LANES_PER_BLOCK = 128
 MAX_WORDS = 12  # 32-bit limbs of the widest curve (P-384)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ctmr_ecdsa_lanes_per_block.restype = i
+    lib.ctmr_ecdsa_lanes_per_block.argtypes = [i]
     lib.ctmr_ecdsa_set_constants.restype = i
     lib.ctmr_ecdsa_set_constants.argtypes = [i, p, p, i]
     lib.ctmr_ecdsa_verify_windowed.restype = i
@@ -44,8 +53,23 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, p, p, p, p, p, p, p, ll, i, p]
 
 
-LIB = cuda_build.Library("ecdsa_verify.cu", (), _bind)
+# The kernels' products are unrolled, so most of the build is the
+# optimizer's; split compilation runs it on the host's cores at once
+# (about 50 s down to 25-35 s on an 8-core H100 host).
+LIB = cuda_build.Library("ecdsa_verify.cu", (), _bind,
+                         ("-split-compile=0",))
 build = LIB.build
+
+
+def block_lanes(window: int) -> int:
+    """Signatures a block of the ladder of ``window`` (0: Jacobian)."""
+    return WINDOWED_LANES_PER_BLOCK if window else JACOBIAN_LANES_PER_BLOCK
+
+
+def lanes_per_block(window: int) -> int:
+    """The built kernel's :func:`block_lanes` (builds it)."""
+    return int(LIB.get().ctmr_ecdsa_lanes_per_block(window))
+
 
 _SET_LOCK = threading.Lock()
 _CONSTANTS_ON: set = set()  # (device index, curve) with constants set
@@ -53,60 +77,80 @@ _CONSTANTS_ON: set = set()  # (device index, curve) with constants set
 
 def products(ops, window: int, ok: bool, u1: int = 0, u2: int = 0,
              infinity: bool = False) -> int:
-    """Montgomery products one lane executes in K6, counted from the
-    kernel's loops, for a lane that passed the range checks: ``ok`` is
-    its on-curve check, (u1, u2) its scalars and ``infinity`` whether
-    its result is at infinity. A lane failing a range check (or a
-    padding lane) executes none (:func:`muls_per_product` turns products
-    into multiply instructions). K6's bound counts what the function
-    needs instead (:func:`products_needed`)."""
+    """Montgomery products one lane needs, for a lane that passed the
+    range checks: ``ok`` is its on-curve check, (u1, u2) its scalars and
+    ``infinity`` whether its result is at infinity. A lane failing a
+    range check (or a padding lane) needs none (:func:`muls_per_product`
+    turns products into multiply instructions).
+
+    s⁻¹ and the result's 1/Z are batch inversions at every window: 3
+    products a lane each here (``bigint.batch_inv_mont``'s prefix
+    product, unwind and the lane's own inverse), the rest of the batch's
+    work apart (:func:`batch_products_needed` for the function K6
+    replaces, :func:`block_products` for K6). At window 0, where
+    ``_verify_jacobian`` inverts lane by lane, the count takes K6's batch
+    form, so that the bound counts no work K6 does not need; T = G + Q
+    keeps a Fermat inversion a lane in both. K6's loops execute the
+    same products a lane."""
     if not ok:
         return 5  # the key to Montgomery form, and the on-curve check
     nbits = ops.nbits
-    c = ops.curve
-    inv_n = nbits + bin(c.n - 2).count("1")
-    inv_p = nbits + bin(c.p - 2).count("1")
-    total = 5 + 1 + inv_n + 6  # checks, s to Montgomery, 1/s, u1 and u2
+    total = 5 + 1 + 3 + 6  # checks, s to Montgomery, s's share, u1 and u2
     if window:
         total += 13 * (_nonzero_digits(u1, window, nbits)
                        + _nonzero_digits(u2, window, nbits))
-        return total + (0 if infinity else inv_p + 2)
+        return total + (0 if infinity else 3 + 2)  # Z's share, x = X / Z
     # Window 0: T = G + Q and its affine form, then a double (8) and an
     # addition a bit; the addition costs 8 products while the sum is at
     # infinity (down to the top set bit) or the addend is, else 11.
     lead = max(u1.bit_length(), u2.bit_length())
     general = bin((u1 | u2) & ((1 << max(lead - 1, 0)) - 1)).count("1")
-    total += 11 + inv_p + 4 + 16 * nbits + 3 * general
-    return total + (0 if infinity else inv_p + 3)
+    total += 11 + chain_products(ops)[1] + 4 + 16 * nbits + 3 * general
+    return total + (0 if infinity else 3 + 3)  # Z's share, x = X / Z^2
 
 
-def products_needed(ops, window: int, ok: bool, u1: int = 0, u2: int = 0,
-                    infinity: bool = False) -> int:
-    """Montgomery products one lane needs in the function K6 replaces,
-    with the arguments of :func:`products`. Window 0 is
-    ``_verify_jacobian``, which inverts lane by lane, as K6 does. The
-    windowed ``_verify_windowed`` inverts s and the result's Z by batch
-    inversion: 3 products a lane for each (prefix product, unwind, and
-    the lane's own inverse), where K6 runs a Fermat chain a lane; the
-    two Fermat chains of the batch are :func:`batch_products_needed`."""
-    if not window or not ok:
-        return products(ops, window, ok, u1, u2, infinity)
-    nbits = ops.nbits
-    total = 5 + 1 + 3 + 6  # checks, s to Montgomery, s's share, u1 and u2
-    total += 13 * (_nonzero_digits(u1, window, nbits)
-                   + _nonzero_digits(u2, window, nbits))
-    return total + (0 if infinity else 3 + 2)
-
-
-def batch_products_needed(ops, window: int) -> int:
-    """Products a batch of windowed lanes needs once, spread over its
-    lanes: the Fermat chains of the two batch inversions (mod n for s,
-    mod p for Z). None at window 0."""
-    if not window:
-        return 0
+def chain_products(ops) -> tuple[int, int]:
+    """Products of one Fermat inversion mod n and mod p (``a^(m-2)``:
+    a square an exponent bit, a product a set bit)."""
     c = ops.curve
-    return (2 * ops.nbits + bin(c.n - 2).count("1")
-            + bin(c.p - 2).count("1"))
+    return (ops.nbits + bin(c.n - 2).count("1"),
+            ops.nbits + bin(c.p - 2).count("1"))
+
+
+def batch_products_needed(ops) -> int:
+    """Products a batch needs once, spread over its lanes: the Fermat
+    chains of its two batch inversions (mod n for s, mod p for Z)."""
+    return sum(chain_products(ops))
+
+
+def _live_per_block(window: int, live) -> np.ndarray:
+    """Live lanes in each block of :func:`block_lanes` lanes."""
+    b = block_lanes(window)
+    live = np.asarray(live, bool)
+    return np.pad(live, (0, (-live.size) % b)).reshape(-1, b).sum(axis=1)
+
+
+def block_products(ops, window: int, live_s, live_z) -> int:
+    """K6's batch-inversion products beyond the lanes' shares of
+    :func:`products`: a block of b = :func:`block_lanes` lanes with a
+    lane whose s it inverts (``live_s``: the lanes that pass every input
+    check) runs a product tree over all its lanes, b - 1 products up and
+    2 (b - 1) down, and two to bring the root's inverse (a binary GCD,
+    no product) back to the Montgomery domain: 3 b - 1, less the 3 a
+    live lane that :func:`products` counts; the same mod p over the
+    lanes whose result is not at infinity (``live_z``). May be
+    negative."""
+    b = block_lanes(window)
+    return sum(int(((3 * b - 1) - 3 * per)[per > 0].sum())
+               for per in (_live_per_block(window, live_s),
+                           _live_per_block(window, live_z)))
+
+
+def block_gcds(window: int, live_s, live_z) -> int:
+    """Binary-GCD inversions K6 runs: one a block and a batch inversion
+    with a live lane."""
+    return sum(int((_live_per_block(window, live) > 0).sum())
+               for live in (live_s, live_z))
 
 
 def _nonzero_digits(u: int, window: int, nbits: int) -> int:
@@ -186,8 +230,8 @@ def verify_windowed(ops, digest: torch.Tensor, r: torch.Tensor,
     Rows uint8[B, byte_len] big-endian (a P-384 digest left-padded),
     ``valid`` bool[B], ``key_idx`` int32[B] (clamped into the slots),
     ``gtab`` packed int32[nwin, 2^w, 2, nl32] and ``qtab`` packed
-    int32[K, nwin, 2^w, 2, nl32] (:func:`..ecdsa.pack_table`), both on
-    16-byte boundaries; all contiguous on one CUDA device."""
+    int32[K, nwin, 2^w, 2, nl32] (:func:`..ecdsa.pack_table`); all
+    contiguous on one CUDA device."""
     global LAUNCHES
     dev = digest.device
     b = _check_rows(ops, dev, digest, r, s, qx, qy, valid)
@@ -204,9 +248,6 @@ def verify_windowed(ops, digest: torch.Tensor, r: torch.Tensor,
     check_tensor("qtab", qtab, torch.int32, (k, nwin, entries, 2, nl32), dev)
     if k < 1:
         raise ValueError("qtab has no slots")
-    if gtab.data_ptr() % 16 or qtab.data_ptr() % 16:
-        raise ValueError("gtab and qtab must start on 16-byte boundaries "
-                         "(the kernel reads an entry as uint4 vectors)")
     out = torch.empty((b,), dtype=torch.bool, device=dev)
     if b == 0:
         return out

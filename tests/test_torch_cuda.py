@@ -880,6 +880,65 @@ def test_ecdsa_kernel_widths(cuda, window):
 
 @pytest.mark.parametrize("curve", ["p256", "p384"])
 @pytest.mark.parametrize("window", [0, 8])
+def test_ecdsa_kernel_widths_that_cut_a_group_or_block(cuda, curve, window):
+    """Widths that end inside a thread group or a block of K6 (1, 3, 31,
+    127, 129, 1,023, 1,025): each launch's verdicts are the prefix of
+    the plain version's on 1,025 lanes."""
+    wide, _ = _k6_case(curve, window, 1025, cuda, seed=11)
+    want = _k6(wide, True)
+    ops, args, valid, key_idx, gtab, qtab = wide
+    for n in (1, 3, 31, 127, 129, 1023, 1025):
+        case = (ops, [a[:n] for a in args], valid[:n], key_idx[:n], gtab,
+                qtab)
+        assert torch.equal(_k6(case, False), want[:n]), n
+
+
+@pytest.mark.parametrize("curve", ["p256", "p384"])
+@pytest.mark.parametrize("window", [0, 8])
+def test_ecdsa_kernel_edge_blocks(cuda, curve, window):
+    """chip_smoke.py's edge lanes, in runs of K6's widest block: every
+    lane failing a check; one good lane among s = 0, r = n and off-curve
+    lanes; results at infinity (Q = G, r = -e mod n) between good lanes;
+    Q = G with r = e (u1 G = u2 Q). K6 == the plain version ==
+    verify_ecdsa, and each run alone gives its lanes the same
+    verdicts."""
+    import chip_smoke
+
+    from ct_mapreduce_tpu_torch.ops import ecdsa, ecdsa_cuda
+    from ct_mapreduce_tpu_torch.verify import host
+
+    ops = ecdsa.CURVE_OPS[curve]
+    c = ops.curve
+    rows, valid, key_idx, keys, lanes = chip_smoke.k6_edge_corpus(c, 3)
+    gtab = qtab = None
+    if window:
+        gtab, _ = ecdsa.fixed_base_table(ops, window, cuda)
+        qtab = ecdsa.zero_qtable(len(keys), ops.nbits // window, 1 << window,
+                                 ops.mod_p.nlimb, cuda)
+        for slot, (x, y) in enumerate(keys):
+            ecdsa.qtable_slot_set(qtab, slot, ecdsa.point_table_cached(
+                ops, window, x, y)[0])
+    case = (ops, [torch.from_numpy(a).to(cuda) for a in rows],
+            torch.from_numpy(valid).to(cuda),
+            torch.from_numpy(key_idx).to(cuda), gtab, qtab)
+    got = _k6(case, False)
+    assert torch.equal(got, _k6(case, True))
+    lim = 1 << (8 * c.byte_len)
+    truth = [bool(v) and host.verify_ecdsa(c, dg, r % lim, s % lim, x % lim,
+                                           y % lim)
+             for v, (_k, dg, r, s, x, y) in zip(valid, lanes)]
+    assert got.cpu().tolist() == truth
+    b = max(ecdsa_cuda.block_lanes(w) for w in (8, 0))
+    assert not any(truth[:b]) and sum(truth[b:2 * b]) == 1
+    ops_, args, v, k, gtab, qtab = case
+    for lo in range(0, len(lanes), b):
+        part = (ops_, [a[lo:lo + b] for a in args], v[lo:lo + b],
+                k[lo:lo + b], gtab, qtab)
+        assert torch.equal(_k6(part, False), got[lo:lo + b]), lo
+
+
+@pytest.mark.parametrize("curve", ["p256", "p384"])
+@pytest.mark.parametrize("window", [0, 8])
 def test_ecdsa_kernel_bad_lane_never_moves_a_neighbour(cuda, curve, window):
     """Adversarial lanes (r, s = 0 or n, off-curve and out-of-range keys,
     a result at infinity's inputs, padding) between valid ones: every

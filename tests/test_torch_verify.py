@@ -22,6 +22,7 @@ What the reference marks slow is slow here too (P-384 window 0, the
 wide widths, the mutation fuzz). Tolerance: exact equality.
 """
 
+import functools
 import io
 import json
 import random
@@ -672,31 +673,165 @@ def test_k6_bound_counts_the_batch_inversions(curve):
     """K6's bound counts what the JAX package's ``_verify_windowed``
     needs: its two batch inversions cost 3 products a lane each and one
     Fermat chain a batch (``bigint.mont_inv``: a square an exponent bit,
-    a product a set bit), where K6 runs two Fermat chains a lane. Window
-    0 (``_verify_jacobian``) inverts lane by lane, as K6 does."""
+    a product a set bit). K6 batch-inverts s and Z by the block (at
+    window 0 too, where the count follows its batch form): a product
+    tree over the block's lanes and a binary GCD at its root."""
     from ct_mapreduce_tpu_torch.ops import ecdsa_cuda
 
     _jc, c, ops = CURVES[curve]
     jmods = ((jbig.P256_N, jbig.P256_P) if curve == "p256"
              else (jbig.P384_N, jbig.P384_P))
-    fermat = sum(len(m.exp_inv_bits) + int(np.sum(m.exp_inv_bits))
-                 for m in jmods)
-    assert ecdsa_cuda.batch_products_needed(ops, 8) == fermat
-    assert ecdsa_cuda.batch_products_needed(ops, 0) == 0
+    chains = tuple(len(m.exp_inv_bits) + int(np.sum(m.exp_inv_bits))
+                   for m in jmods)
+    assert ecdsa_cuda.chain_products(ops) == chains
+    assert ecdsa_cuda.batch_products_needed(ops) == sum(chains)
     rng = random.Random(7)
     for _ in range(8):
         u1, u2 = rng.randrange(c.n), rng.randrange(c.n)
         for w in (2, 4, 8):
-            run = ecdsa_cuda.products(ops, w, True, u1, u2)
-            need = ecdsa_cuda.products_needed(ops, w, True, u1, u2)
-            assert run - need == fermat - 2 * 3
-            assert (ecdsa_cuda.products(ops, w, True, u1, u2, True)
-                    - ecdsa_cuda.products_needed(ops, w, True, u1, u2, True)
-                    == len(jmods[0].exp_inv_bits)
-                    + int(np.sum(jmods[0].exp_inv_bits)) - 3)
-        assert (ecdsa_cuda.products_needed(ops, 0, True, u1, u2)
-                == ecdsa_cuda.products(ops, 0, True, u1, u2))
-    assert ecdsa_cuda.products_needed(ops, 8, False) == 5
+            # Z's share (3) and x = X / Z, to the plain domain (2).
+            assert (ecdsa_cuda.products(ops, w, True, u1, u2)
+                    - ecdsa_cuda.products(ops, w, True, u1, u2, True)
+                    == 3 + 2)
+        # Window 0: Z's share (3), zinv^2, X zinv^2 and to plain (3).
+        assert (ecdsa_cuda.products(ops, 0, True, u1, u2)
+                - ecdsa_cuda.products(ops, 0, True, u1, u2, True) == 3 + 3)
+    assert ecdsa_cuda.products(ops, 8, False) == 5
+    for w in (8, 0):
+        b = ecdsa_cuda.block_lanes(w)
+        live = np.zeros(3 * b + 1, bool)  # four blocks, the last one lane
+        live[[0, 5, 2 * b + 3, 3 * b]] = True  # block 1 has no live lane
+        live_z = live.copy()
+        live_z[3 * b] = False
+        # A product tree over every lane of a block with a live lane: 3 b
+        # - 1 products, less the live lanes' shares.
+        assert ecdsa_cuda.block_products(ops, w, live, live_z) == (
+            5 * (3 * b - 1) - 3 * 4 - 3 * 3)
+        assert ecdsa_cuda.block_gcds(w, live, live_z) == 5
+
+
+# -- a model of K6's schedule ---------------------------------------------
+
+
+def _block_inverse(vals, live, m, block):
+    """K6's block batch inversion: a product tree over ``block`` leaves
+    (the live values, 1 for every other lane and past the end), the
+    root inverted once, the inverses down the tree; a lane that is not
+    live gets 0."""
+    leaves = [v if lv else 1 for v, lv in zip(vals, live)]
+    tree = [0] * block + leaves + [1] * (block - len(leaves))
+    for k in range(block - 1, 0, -1):
+        tree[k] = tree[2 * k] * tree[2 * k + 1] % m
+    tree[1] = pow(tree[1], -1, m)
+    for k in range(1, block):
+        inv = tree[k]
+        tree[2 * k], tree[2 * k + 1] = (inv * tree[2 * k + 1] % m,
+                                        inv * tree[2 * k] % m)
+    return [tree[block + j] if lv else 0 for j, lv in enumerate(live)]
+
+
+def _madd_complete(c, X, Y, Z, x2, y2):
+    """Renes-Costello-Batina 2015 Alg. 5 (a = -3) in K6's order."""
+    p, b = c.p, c.b
+    t0, t1 = X * x2 % p, Y * y2 % p
+    t3 = ((x2 + y2) * (X + Y) - t0 - t1) % p
+    t4, ty = (y2 * Z + Y) % p, (x2 * Z + X) % p
+    x3 = 3 * (ty - b * Z) % p
+    z3t, x3t = (t1 - x3) % p, (t1 + x3) % p
+    y3 = 3 * (b * ty - 3 * Z - t0) % p
+    t0n = (3 * t0 - 3 * Z) % p
+    return ((t3 * x3t - t4 * y3) % p, (x3t * z3t + t0n * y3) % p,
+            (t4 * z3t + t3 * t0n) % p)
+
+
+@functools.lru_cache(maxsize=None)
+def _window_table(c, P, w):
+    """Entry [j][d] = d * 2^(w j) * P, affine (None for d = 0)."""
+    tab = []
+    for _ in range(c.n.bit_length() // w + 1):
+        row, acc = [None], None
+        for _ in range(1, 1 << w):
+            acc = host._point_add(c, acc, P)
+            row.append(acc)
+        tab.append(row)
+        P = host._point_add(c, acc, P)  # 2^w * P
+    return tab
+
+
+def _k6_model(c, lanes, valid, key_idx, keys, window=4, block=16):
+    """K6's schedule in Python ints, block by block: the input checks, s
+    by block batch inversion with its masks, u1 and u2, the windowed
+    ladder of complete mixed additions from the identity (0 : 1 : 0)
+    (Q from the lane's key slot), Z by block batch inversion (a result
+    at infinity is not live), x mod n == r."""
+    p, n = c.p, c.n
+    lim = 1 << (8 * c.byte_len)
+    g_tab = _window_table(c, (c.gx, c.gy), window)
+    q_tabs = {}
+    nwin = 8 * c.byte_len // window
+    verdicts = []
+    for b0 in range(0, len(lanes), block):
+        chunk = [(i, lanes[i]) for i in range(b0, min(len(lanes), b0 + block))]
+        ok, s_vals = [], []
+        for i, (_k, dg, r, s, x, y) in chunk:
+            r, s, x, y = r % lim, s % lim, x % lim, y % lim
+            good = (bool(valid[i]) and 0 < r < n and 0 < s < n and x < p
+                    and y < p and bool(x or y)
+                    and (y * y - x * x * x + 3 * x - c.b) % p == 0)
+            ok.append(good)
+            s_vals.append(s)
+        w = _block_inverse(s_vals, ok, n, block)
+        pts = []
+        for (i, (_k, dg, r, s, x, y)), good, wi in zip(chunk, ok, w):
+            X, Y, Z = 0, 1, 0
+            if good:
+                z = host.digest_to_z(c, dg) % n
+                u1, u2 = z * wi % n, (r % lim) * wi % n
+                slot = min(max(int(key_idx[i]), 0), len(keys) - 1)
+                if slot not in q_tabs:
+                    q_tabs[slot] = _window_table(c, tuple(keys[slot]),
+                                                 window)
+                for j in range(nwin):
+                    for u, tab in ((u1, g_tab), (u2, q_tabs[slot])):
+                        d = (u >> (window * j)) & ((1 << window) - 1)
+                        if d:
+                            X, Y, Z = _madd_complete(c, X, Y, Z, *tab[j][d])
+            pts.append((X, Z))
+        live = [good and Z != 0 for good, (_X, Z) in zip(ok, pts)]
+        zi = _block_inverse([Z for _X, Z in pts], live, p, block)
+        for (i, ln), lv, (X, _Z), zinv in zip(chunk, live, pts, zi):
+            verdicts.append(lv and X * zinv % p % n == ln[2] % lim)
+    return verdicts
+
+
+@pytest.mark.parametrize("curve", ["p256", "p384"])
+def test_k6_schedule_model_matches_host(curve):
+    """K6's order of operations (block batch inversions over a product
+    tree with masked leaves, the windowed complete-addition ladder) in
+    Python ints, held to verify_ecdsa on chip_smoke.py's edge lanes (a
+    block of failed checks, one good lane among bad ones, results at
+    infinity, u1 G = u2 Q) and on 64 lanes of its phase 13 corpus; and a
+    bad lane never moves a neighbour: the good lanes' verdicts are the
+    same with every other lane made padding. Blocks of 16 lanes keep it
+    cheap; the schedule is the same at any power of two."""
+    import chip_smoke
+
+    c = CURVES[curve][1]
+    lim = 1 << (8 * c.byte_len)
+    for corpus in (chip_smoke.k6_edge_corpus(c, 3, block=16),
+                   chip_smoke.k6_corpus(c, 64, 5)):
+        _rows, valid, key_idx, keys, lanes = corpus
+        truth = [bool(v) and host.verify_ecdsa(c, dg, r % lim, s % lim,
+                                               x % lim, y % lim)
+                 for v, (_k, dg, r, s, x, y) in zip(valid, lanes)]
+        got = _k6_model(c, lanes, valid, key_idx, keys, block=16)
+        assert got == truth
+        assert 0 < sum(truth) < len(truth)
+        kinds = np.array([ln[0] for ln in lanes])
+        alone = _k6_model(c, lanes, valid & (kinds == 0), key_idx, keys,
+                          block=16)
+        assert [a for a, k in zip(alone, kinds) if k == 0] == [
+            t for t, k in zip(truth, kinds) if k == 0]
 
 
 def test_grow_verify_totals_matches_jax():

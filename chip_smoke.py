@@ -30,7 +30,9 @@ Phases, none of them caught — any failure exits non-zero:
 4. the probe ladder: its command-line path on the card (each stage at
    one tile against its plain version, stage 9 against the host
    parser, stage 9 timed at 2^20 lanes), then every stage at 2^20 lanes
-   against its plain version, timed;
+   against its plain version, timed (stage 9 also on random words and on
+   crafted rows whose headers or serial run past its window and the
+   row);
 5. the walker main path, the default lane: ``IngestModel`` at
    ``batchSize`` 2^20 from ``tableBits`` 21, with an issuer
    CN filter that keeps 12 of 16 issuers and a 64-byte prefix of a
@@ -109,8 +111,10 @@ Phases, none of them caught — any failure exits non-zero:
    may fall back to the host (``serve.device_fallback`` stays 0), and
    every replica's rows are pinned on CUDA;
 12. filter emission on the card: (0) the Bloom bit-scatter K5 against
-   its plain version at 2^20 lanes, one layer and a fused round of
-   1,024 groups, bit for bit, both timed; (a) filter-main: walker-main's
+   its plain version at 2^20 lanes, one layer, a fused round of 1,024
+   groups and filter-scale's first dispatch, bit for bit on arenas
+   non-zero on entry, both timed, and each of K5's five phases timed,
+   with its scratch bytes; (a) filter-main: walker-main's
    first 2 batches (about a million serials in 13 groups) through an
    ``IngestModel`` with ``aggStatePath`` (ck01) and filter emission
    (fl02): the capture equals the oracle's serial sets, ``save()`` emits
@@ -254,24 +258,13 @@ def build_all() -> dict:
 def cuda_times(fn, reps: int, calls: int = 1,
                warmup: int = 3) -> list[float]:
     """``reps`` CUDA-event timings of ``fn()`` in milliseconds, each the
-    mean of ``calls`` back-to-back calls between one pair of events, so
-    that the host's time between launches hides behind the card's
-    work."""
-    import torch
+    mean of ``calls`` back-to-back calls between one pair of events. The
+    card first spins while the host queues the calls
+    (``kernel_times.cuda_ms``), so that a wrapper's host time between
+    launches does not show in a short kernel's time."""
+    from ct_mapreduce_tpu_torch.tools.kernel_times import cuda_ms
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(reps):
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return times
+    return cuda_ms(fn, reps, calls, warmup)
 
 
 def median(xs: list[float]) -> float:
@@ -335,6 +328,13 @@ def sass_report(out_dir: str) -> dict:
         print(f"sass k6 kernel ...{kname[-60:]}: {k}", flush=True)
         check(k["spill_store_bytes"] == 0 and k["spill_load_bytes"] == 0,
               f"a K6 kernel spills: {kname} {k}")
+    for name, pick in (("k5", lambda kname: True),
+                       ("probe", lambda kname: "k_serial_extract" in kname)):
+        for kname, k in report[name]["kernels"].items():
+            if pick(kname):
+                print(f"sass {name} kernel ...{kname[-60:]}: {k}", flush=True)
+                check(k["spill_store_bytes"] == 0 and k["spill_load_bytes"] == 0,
+                      f"a {name} kernel spills: {kname} {k}")
     k6 = kernel_libs()["k6"]
     report["k6"]["product"] = k6_product_sass(k6.path, out_dir, k6.flags)
     k3 = report["k3"]
@@ -870,6 +870,13 @@ def probe_check(device, seed: int) -> dict:
         if expected is not None:
             check(np.array_equal(got.cpu().numpy(), expected),
                   f"probe stage {name} != host parser at {n} lanes")
+        if stage == mp.SERIAL_STAGE:  # the window's edges
+            for what, rows in (("crafted", mp.crafted_serial_rows(seed, 64)),
+                               ("random", mp.random_words(seed, 1 << 16))):
+                r = mp.to_tensor(rows, device)
+                check(torch.equal(mp.kernel_stage(stage, r),
+                                  mp.plain_stage(stage, r)),
+                      f"probe stage {name} != plain on {what} rows")
         k_ms = mp.time_stage(stage, w, TIMED_REPS, KERNEL_CALLS_PER_TIMING)
         p_ms = cuda_times(lambda: mp.plain_stage(stage, w), PLAIN_REPS, warmup=1)
         lib_ms = None
@@ -2642,8 +2649,6 @@ FILTER_GHOSTS = 1 << 15  # never-logged serials queried per artifact
 SCALE_SERIALS = 1 << 24  # (c): serials in the streamed fl02 build
 SCALE_ISSUERS, SCALE_HOURS = 64, 16  # (c): 1,024 (issuer, hour) groups
 SCALE_CHUNK = 1 << 20  # (c): serials a streamed key block
-BLOOM_LANES = 1 << 20  # K5's timed shape, in each form
-BLOOM_GROUPS = 1024  # groups of the fused form's timed shape
 
 
 def _filter_dir() -> str:
@@ -2682,68 +2687,80 @@ def bloom_bound(lanes: int, probes: int, arena_words: int) -> dict:
 
 
 def bloom_check(device, seed: int) -> dict:
-    """Phase 12 (0): K5 against its plain version at BLOOM_LANES lanes in
-    both forms, bit for bit, and both timed with CUDA events in turns:
-    one layer (one group at offset 0, sized for the lanes at FILTER_FP)
-    and a fused round of BLOOM_GROUPS groups of Zipf(1.1) sizes, laid
-    out as the grouped build lays them (contiguous per group)."""
-    import numpy as np
+    """Phase 12 (0): K5 against its plain version at its timed shapes
+    (``tools/kernel_times.k5_shapes``: one layer of 2^20 keys, a fused
+    round of 2^20 keys in 1,024 Zipf groups laid out group by group, and
+    filter-scale's first 2^20-lane dispatch into its round's arena), bit
+    for bit on an arena non-zero on entry, then both timed with CUDA
+    events in turns, and each of K5's phases timed as the difference of
+    two prefixes of its one launch."""
     import torch
 
-    from ct_mapreduce_tpu_torch.filter.cascade import keys_tensor, layer_params
     from ct_mapreduce_tpu_torch.ops import bloom, bloom_cuda
-    from ct_mapreduce_tpu_torch.utils import syncerts
+    from ct_mapreduce_tpu_torch.tools import kernel_times as kt
 
-    rng = np.random.default_rng(seed + 12)
-    n = BLOOM_LANES
-    keys = keys_tensor(rng.integers(0, 2**32, (n, 4), np.uint32), device)
-    m, k = layer_params(n, FILTER_FP)
-    sizes = rng.multinomial(n - BLOOM_GROUPS,
-                            syncerts.zipf_weights(BLOOM_GROUPS, 1.1)) + 1
-    params = np.array([layer_params(int(c), FILTER_FP) for c in sizes])
-    forms = {
-        "layer": (np.zeros((n,), np.int32), np.array([0]), np.array([m]),
-                  np.array([k])),
-        "fused": (np.repeat(np.arange(BLOOM_GROUPS), sizes).astype(np.int32),
-                  np.concatenate(([0], np.cumsum(params[:, 0])[:-1])),
-                  params[:, 0], params[:, 1]),
-    }
     out = {}
-    for form, (gid, offs, ms, ks) in forms.items():
-        total = int(offs[-1] + ms[-1])
-        t = (keys, torch.from_numpy(gid).to(device),
-             torch.from_numpy(offs.astype(np.int64)).to(device),
-             torch.from_numpy(ms.astype(np.int32)).to(device),
-             torch.from_numpy(ks.astype(np.int32)).to(device))
-        got = torch.zeros((total // 32,), dtype=torch.int32, device=device)
-        bloom_cuda.scatter(got, *t, 7)
-        want = torch.zeros_like(got)
-        bloom.bloom_scatter_plain(want, *t, 7)
+    layer = 7
+    for form, shape in kt.k5_shapes(device, seed).items():
+        t = kt.args_of(shape)
+        n, kmax = int(shape["keys"].shape[0]), shape["kmax"]
+        n_words = shape["total_bits"] // 32
+        gen = torch.Generator(device=device).manual_seed(seed)
+        start = torch.randint(-(1 << 31), 1 << 31, (n_words,), device=device,
+                              dtype=torch.int64, generator=gen)
+        start = (start * (torch.rand((n_words,), device=device,
+                                     generator=gen) < 0.05)).to(torch.int32)
+        got, want = start.clone(), start.clone()
+        bloom_cuda.scatter(got, *t, layer, kmax)
+        bloom.bloom_scatter_plain(want, *t, layer)
         torch.cuda.synchronize()
         err = _max_abs_err(got, want)
         check(torch.equal(got, want),
               f"K5 ({form}) != plain on {n} lanes (max abs err {err})")
         kernel_ms, plain_ms = [], []
         for _ in range(2):  # in turns: kernel, plain, kernel, plain
-            kernel_ms += cuda_times(lambda: bloom_cuda.scatter(got, *t, 7),
-                                    TIMED_REPS, KERNEL_CALLS_PER_TIMING)
+            kernel_ms += cuda_times(
+                lambda: bloom_cuda.scatter(got, *t, layer, kmax), TIMED_REPS,
+                KERNEL_CALLS_PER_TIMING)
             plain_ms += cuda_times(
-                lambda: bloom.bloom_scatter_plain(want, *t, 7), PLAIN_REPS,
-                warmup=1)
-        probes = int(ks[gid].sum()) if form == "fused" else n * k
-        st = dict(bloom_bound(n, probes, total // 32), lanes=n,
-                  groups=len(ms), probes=probes, arena_bits=total,
+                lambda: bloom.bloom_scatter_plain(want, *t, layer),
+                PLAIN_REPS, warmup=1)
+        prefix = [0.0]
+        for phases in range(1, len(bloom_cuda.PHASES) + 1):
+            prefix.append(median(cuda_times(
+                lambda: bloom_cuda.scatter_phases(got, *t, layer, kmax,
+                                                  phases=phases),
+                TIMED_REPS, KERNEL_CALLS_PER_TIMING)))
+        check(torch.equal(got, want), f"K5 ({form}) changed on a rerun")
+        # The words the dispatch must read and write: its groups' layers.
+        reached = torch.unique(shape["gid"])
+        touched = int((shape["ms"][reached].to(torch.int64) // 32).sum())
+        st = dict(bloom_bound(n, shape["probes"], touched), lanes=n,
+                  groups=shape["groups"],
+                  groups_reached=shape["groups_reached"],
+                  probes=shape["probes"], arena_bits=shape["total_bits"],
+                  touched_words=touched, kmax=kmax,
+                  region_bits=bloom.region_bits(n_words),
+                  scratch_bytes=bloom.scratch_bytes(n, kmax, n_words,
+                                                    shape["groups"]),
                   max_abs_err=err, kernel_ms=median(kernel_ms),
                   kernel_ms_min=min(kernel_ms), kernel_ms_max=max(kernel_ms),
-                  plain_ms=median(plain_ms), timings=2 * TIMED_REPS)
+                  plain_ms=median(plain_ms), timings=2 * TIMED_REPS,
+                  phase_ms={name: prefix[i + 1] - prefix[i]
+                           for i, name in enumerate(bloom_cuda.PHASES)})
         st["share_of_bound"] = st["bound_ms"] / st["kernel_ms"]
         out[form] = st
-        print(f"phase 12 (0): K5 {form} == plain on {n} lanes ({len(ms)} "
-              f"groups, {probes} probes); kernel {st['kernel_ms']:.4f} ms, "
-              f"plain {st['plain_ms']:.3f} ms, bound {st['bound_ms']:.4f} ms "
-              f"({st['bound_by']}), {st['share_of_bound']:.1%} of bound; "
-              f"every probe a sector RMW {st['sector_ms']:.4f} ms", flush=True)
-        del got, want
+        print(f"phase 12 (0): K5 {form} == plain on {n} lanes ({st['groups']} "
+              f"groups, {st['groups_reached']} reached, {st['probes']} "
+              f"probes, arena non-zero on entry); kernel "
+              f"{st['kernel_ms']:.4f} ms, plain {st['plain_ms']:.3f} ms, "
+              f"bound {st['bound_ms']:.4f} ms ({st['bound_by']}), "
+              f"{st['share_of_bound']:.1%} of bound; every probe a sector "
+              f"RMW {st['sector_ms']:.4f} ms; scratch {st['scratch_bytes']} B; "
+              "phases " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                    st["phase_ms"].items()) + " ms",
+              flush=True)
+        del got, want, start
     torch.cuda.empty_cache()
     return out
 
@@ -3144,11 +3161,11 @@ def filter_scale(device, seed: int) -> dict:
     def fp(ii, eh, ser, ln):
         return events("k1", lambda: orig_fp(ii, eh, ser, ln), int(ln.shape[0]))
 
-    def scatter(words, keys, gid, offs, ms, ks, layer):
+    def scatter(words, keys, gid, offs, ms, ks, layer, kmax=None):
         want = bloom.bloom_scatter_plain(words.clone(), keys, gid, offs, ms,
                                          ks, layer)
         got = events("k5", lambda: orig_scatter(words, keys, gid, offs, ms,
-                                                ks, layer),
+                                                ks, layer, kmax),
                      int(keys.shape[0]))
         check(torch.equal(got, want), f"filter-scale: K5 != plain on "
               f"dispatch {len(dispatches)} ({int(keys.shape[0])} lanes)")
@@ -3928,7 +3945,7 @@ def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
         "bound_by": k3["bound_by"], "library_ms": None,
     }, {
         # The fused form (the one the grouped build launches); the
-        # one-layer form's numbers ride beside it.
+        # one-layer form's and filter-scale's dispatch's ride beside it.
         "name": "bloom_scatter", "route": "cuda",
         "source": "ct_mapreduce_tpu_torch/csrc/bloom_scatter.cu",
         "replaces": "ct_mapreduce_tpu/filter/fused.py:122",
@@ -3938,8 +3955,11 @@ def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
         "ms": k5["fused"]["kernel_ms"], "plain_ms": k5["fused"]["plain_ms"],
         "bound_ms": k5["fused"]["bound_ms"],
         "bound_by": k5["fused"]["bound_by"], "library_ms": None,
-        "one_layer": {key: k5["layer"][key] for key in (
-            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+        "scratch_bytes": k5["fused"]["scratch_bytes"],
+        "phase_ms": k5["fused"]["phase_ms"],
+        **{form: {key: k5[form][key] for key in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "scratch_bytes", "phase_ms")} for form in ("layer", "scale_dispatch")},
     }, {
         # P-256 at window 8 on 2^16 lanes; the other configurations and
         # the lane's width (1,024) ride beside it.

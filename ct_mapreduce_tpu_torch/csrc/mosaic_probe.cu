@@ -15,8 +15,10 @@
 //
 // What bounds them on an H100: bytes. Stages 0, 4 and 5 read every word
 // of a lane (256 B), the others one word per byte read; each does a few
-// integer operations a byte. Nothing is staged in shared memory: a
-// lane's words are read once each, coalesced across the warp.
+// integer operations a byte. Stages 0-8 stage nothing in shared memory:
+// a lane's words are read once each, coalesced across the warp. Stage 9
+// loads a window of each row at once and decodes it from shared memory
+// (see k_serial_extract).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -171,24 +173,118 @@ PROBE_KERNEL(k_tlv_walk) {
 // Stage 9: the walker fragment on real certificates: Certificate → TBS
 // → optional [0] version → serial, then the serial's byte sum plus
 // 1000 x its length (0 unless the serial tag is INTEGER).
-PROBE_KERNEL(k_serial_extract) {
-  const long long lane = lane_id();
-  if (lane >= lanes) return;
-  const Clipped read{LaneWords{w + lane, lanes, kRowBytes}};
-  const ProbeTlv t0 = probe_tlv(read, 0);
+//
+// Its four headers depend on each other, so reading each byte from
+// global memory made a chain of dependent load rounds (the stage's
+// first design, ~40 loads a lane). Here a lane loads its first
+// kWindowWords words at once, independent coalesced loads, and stages
+// them in shared memory, one column a thread (conflict-free: a warp's
+// lanes are 32 banks apart whatever word each reads). A header is then
+// two shared loads and a funnel shift, the serial's sum one shared load
+// and one __vsadu4 a word. Only a byte past the window goes to global
+// memory, with the same clipping, so every row gives the plain version's
+// result. Nine words (36 bytes) hold the headers and a 21-byte serial of
+// every certificate of the ladder's corpus (its footprint's last word is
+// word 8).
+constexpr int kWindowWords = 9;
+constexpr int kSerialLanes = 2;
+
+struct SerialWindow {
+  const uint32_t* col;  // this lane's column: word k at col[k * kThreads]
+  Clipped row;          // the lane's row in global memory
+
+  __device__ __forceinline__ uint32_t word(int k) const {
+    return k < kWindowWords ? col[k * kThreads]
+                            : __ldg(row.src.w + static_cast<long long>(k) * row.src.stride);
+  }
+
+  // Bytes q..q+3, byte q in the top 8 bits, each read clipped into the
+  // row as Clipped does.
+  __device__ __forceinline__ uint32_t bytes4(int q) const {
+    if (q >= 0 && q + 3 < 4 * kWindowWords) {
+      const int k = q >> 2;
+      const uint32_t hi = col[k * kThreads];
+      const uint32_t lo = col[(k + 1 < kWindowWords ? k + 1 : k) * kThreads];
+      return __funnelshift_l(lo, hi, (q & 3) * 8);
+    }
+    return (static_cast<uint32_t>(row(q)) << 24) |
+           (static_cast<uint32_t>(row(q + 1)) << 16) |
+           (static_cast<uint32_t>(row(q + 2)) << 8) |
+           static_cast<uint32_t>(row(q + 3));
+  }
+
+  // probe_tlv from one 4-byte read.
+  __device__ __forceinline__ ProbeTlv tlv(int off) const {
+    const uint32_t v = bytes4(off);
+    const int l0 = static_cast<int>((v >> 16) & 0xFFu);
+    const int l1 = static_cast<int>((v >> 8) & 0xFFu);
+    const int l2 = static_cast<int>(v & 0xFFu);
+    const bool long_form = l0 >= 0x80;
+    const int nlen = long_form ? (l0 & 0x7F) : 0;
+    ProbeTlv t;
+    t.tag = static_cast<int>(v >> 24);
+    t.content = long_form ? derwalk::long_form_len(nlen == 1 ? 1 : 2, l1, l2, 0) : l0;
+    t.hdr = 2 + nlen;
+    return t;
+  }
+
+  // Sum of row bytes lo..hi-1 (0 <= lo, hi <= kRowBytes).
+  __device__ __forceinline__ int byte_sum(int lo, int hi) const {
+    int total = 0;
+    for (int k = lo >> 2; 4 * k < hi; ++k) {
+      const int a = lo - 4 * k, b = hi - 4 * k;  // keep bytes a..b-1
+      const uint32_t keep =
+          __funnelshift_rc(0xFFFFFFFFu, 0u, a > 0 ? 8 * a : 0) &
+          ~__funnelshift_rc(0xFFFFFFFFu, 0u, b < 4 ? 8 * b : 32);
+      total += static_cast<int>(__vsadu4(word(k) & keep, 0u));
+    }
+    return total;
+  }
+};
+
+__device__ __forceinline__ int serial_checksum(const SerialWindow& win) {
+  const ProbeTlv t0 = win.tlv(0);
   const int tbs_off = t0.hdr;
-  const ProbeTlv t1 = probe_tlv(read, tbs_off);
+  const ProbeTlv t1 = win.tlv(tbs_off);
   const int el = tbs_off + t1.hdr;
-  const ProbeTlv te = probe_tlv(read, el);
+  const ProbeTlv te = win.tlv(el);
   const int ser_el = te.tag == 0xA0 ? el + te.hdr + te.content : el;
-  const ProbeTlv ts = probe_tlv(read, ser_el);
+  const ProbeTlv ts = win.tlv(ser_el);
   const int ser_off = ser_el + ts.hdr;
-  int lo = ser_off < 0 ? 0 : ser_off;
-  int hi = ser_off + ts.content;
-  if (hi > kRowBytes) hi = kRowBytes;
-  int total = 0;
-  for (int q = lo; q < hi; ++q) total += read.src(q);
-  out[lane] = ts.tag == 0x02 ? total + ts.content * 1000 : 0;
+  const int lo = ser_off < 0 ? 0 : ser_off;
+  const int hi = ser_off + ts.content > kRowBytes ? kRowBytes : ser_off + ts.content;
+  const int total = lo < hi ? win.byte_sum(lo, hi) : 0;
+  return ts.tag == 0x02 ? total + ts.content * 1000 : 0;
+}
+
+// kSerialLanes lanes a thread (lanes kThreads apart, so a warp's loads
+// stay coalesced): every window load of both is issued before the first
+// decode, which halves the rounds of load latency a block waits out.
+PROBE_KERNEL(k_serial_extract) {
+  __shared__ uint32_t window[kSerialLanes * kWindowWords * kThreads];
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads * kSerialLanes + threadIdx.x;
+  uint32_t v[kSerialLanes][kWindowWords];
+#pragma unroll
+  for (int j = 0; j < kSerialLanes; ++j) {
+    const long long lane = first + j * kThreads;
+#pragma unroll
+    for (int k = 0; k < kWindowWords; ++k)
+      v[j][k] = lane < lanes ? __ldg(w + k * lanes + lane) : 0u;
+  }
+#pragma unroll
+  for (int j = 0; j < kSerialLanes; ++j)
+#pragma unroll
+    for (int k = 0; k < kWindowWords; ++k)
+      window[(j * kWindowWords + k) * kThreads + threadIdx.x] = v[j][k];
+#pragma unroll
+  for (int j = 0; j < kSerialLanes; ++j) {
+    const long long lane = first + j * kThreads;
+    if (lane < lanes)
+      out[lane] = serial_checksum(SerialWindow{
+          window + j * kWindowWords * kThreads + threadIdx.x,
+          Clipped{LaneWords{w + lane, lanes, kRowBytes}}});
+  }
 }
 
 using ProbeFn = void (*)(const uint32_t*, long long, int32_t*);
@@ -198,6 +294,10 @@ const ProbeFn kStages[] = {
     k_tlv_step,    k_tlv_walk,         k_serial_extract,
 };
 constexpr int kNumStages = sizeof(kStages) / sizeof(kStages[0]);
+// Lanes a block of each stage covers.
+constexpr int kStageLanes[kNumStages] = {
+    kThreads, kThreads, kThreads, kThreads, kThreads,
+    kThreads, kThreads, kThreads, kThreads, kThreads * kSerialLanes};
 
 }  // namespace
 
@@ -211,7 +311,7 @@ extern "C" int ctmr_probe_stage(int stage, const void* words, long long lanes,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (lanes <= 0) return 0;
-  const long long blocks = (lanes + kThreads - 1) / kThreads;
+  const long long blocks = (lanes + kStageLanes[stage] - 1) / kStageLanes[stage];
   kStages[stage]<<<static_cast<unsigned int>(blocks), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), lanes, static_cast<int32_t*>(out));

@@ -149,7 +149,7 @@ def build_layer(keys: np.ndarray, m: int, k: int, layer: int,
                     torch.zeros((1,), dtype=torch.int64, device=dev),
                     torch.tensor([m], dtype=torch.int32, device=dev),
                     torch.tensor([k], dtype=torch.int32, device=dev),
-                    layer)
+                    layer, kmax=k)
             return words_numpy(words)
         bits = np.zeros((m,), bool)
         if n:

@@ -680,13 +680,14 @@ def _device_arena(chunks, keys_of, offs, ms, ks, level, total_bits,
     offs_d = torch.from_numpy(np.asarray(offs, np.int64)).to(dev)
     ms_d = torch.from_numpy(np.asarray(ms, np.int32)).to(dev)
     ks_d = torch.from_numpy(np.asarray(ks, np.int32)).to(dev)
+    kmax = int(np.max(ks)) if len(ks) else 0
     for lane_list in chunks:
         parts = [keys_of(lanes) for _, lanes in lane_list]
         gid = np.concatenate([np.full((p.shape[0],), j, np.int32)
                               for (j, _), p in zip(lane_list, parts)])
         bloom.bloom_scatter(words, keys_tensor(np.concatenate(parts), dev),
                             torch.from_numpy(gid).to(dev), offs_d, ms_d,
-                            ks_d, level)
+                            ks_d, level, kmax=kmax)
         stats.dispatches += 1
         stats.device_dispatches += 1
         stats.groups_per_dispatch.append(len(lane_list))

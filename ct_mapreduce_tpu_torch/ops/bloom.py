@@ -18,6 +18,7 @@ between the two.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -37,6 +38,146 @@ OPS_PER_PROBE = 8
 
 #: Words packed a step by the plain version (bounds its int64 scratch).
 _PACK_WORDS = 1 << 20
+
+#: K5's schedule (``csrc/bloom_scatter.cu``): regions of at least
+#: 2^MIN_REGION_BITS bits, at most MAX_REGIONS of them (the region grows
+#: past 2^29-bit arenas), work items of at most CHUNK probes, tiles
+#: (and blocks) of LANE_THREADS lanes.
+MIN_REGION_BITS = 18
+MAX_REGIONS = 2048
+CHUNK = 16384
+LANE_THREADS = 256
+#: The largest ``kmax`` the kernel takes (its bin phase holds
+#: LANE_THREADS * kmax probes twice and their 16-bit ranks, 10 B each, in
+#: shared memory); the cascade's k is at most 16.
+KMAX_LIMIT = 32
+#: The largest arena, in bits: a bit index fits 32 bits.
+MAX_ARENA_BITS = (1 << 31) - 1
+
+
+def region_bits(n_words: int, min_bits: int = MIN_REGION_BITS) -> int:
+    """log2 of K5's region size in bits for an arena of ``n_words``."""
+    r = min_bits
+    while -(-n_words * 32 // (1 << r)) > MAX_REGIONS:
+        r += 1
+    return r
+
+
+def scratch_bytes(n: int, kmax: int, n_words: int, n_groups: int) -> int:
+    """Bytes of scratch K5 takes for ``n`` lanes: the region counts, a
+    reciprocal a group and the probe lists (``n * kmax * 4``), each part
+    16-byte aligned (the source's ``layout``)."""
+
+    def a16(x: int) -> int:
+        return (x + 15) & ~15
+
+    regions = max(1, -(-n_words * 32 // (1 << region_bits(n_words))))
+    off = a16(4 * regions)  # counts
+    off = a16(off + 4 * n_groups)  # reciprocals
+    return a16(off + 4 * n * kmax)  # probe lists
+
+
+def _check_kmax(kmax: int, ks) -> None:
+    """K5's prep phase traps on a group of more than ``kmax`` probes
+    (its probe lists hold ``kmax`` a lane); the host paths raise."""
+    most = int(ks.max()) if len(ks) else 0
+    if kmax < most:
+        raise ValueError(f"kmax {kmax} is below a group's k of {most}")
+
+
+def binned_model(words: np.ndarray, keys: np.ndarray, gid: np.ndarray,
+                 offs: np.ndarray, ms: np.ndarray, ks: np.ndarray,
+                 layer: int, kmax: int | None = None,
+                 min_region_bits: int = MIN_REGION_BITS,
+                 chunk: int = CHUNK) -> dict:
+    """NumPy model of K5's schedule, phase for phase, at the kernel's
+    region size unless named: ORs the probe bits of ``keys`` into the
+    uint32 ``words`` (in place) and returns what the phases made.
+
+    prep: a reciprocal ``floor((2^32 - 1) / m)`` a group (a group whose
+    k passes ``kmax`` raises ValueError: the kernel traps); count: probes
+    by region (the modulo a multiply-high and one correction); scan:
+    list offsets and work items of at most ``chunk`` probes; bin: each
+    probe's bit offset in its region, in its region's list, a tile of
+    LANE_THREADS lanes at a time (past LANE_THREADS regions, over the
+    tile's own region range, which every probe of the tile must fall
+    in); own: a region's words loaded, ORed and stored by its one item,
+    or, for a region of several items, each item's words ORed from
+    zero."""
+    words = np.asarray(words)
+    n_words = int(words.shape[0])
+    n = int(keys.shape[0])
+    ks = np.asarray(ks, np.int64)
+    if kmax is None:
+        kmax = int(ks.max()) if ks.size else 0
+    _check_kmax(kmax, ks)
+    r_bits = region_bits(n_words, min_region_bits)
+    regions = max(1, -(-n_words * 32 // (1 << r_bits)))
+    # prep
+    m32 = np.asarray(ms, np.uint64)
+    minv = np.uint64(M32) // m32
+    # count
+    keys = np.asarray(keys, np.uint32).astype(np.uint64)
+    gold = np.uint64((int(layer) * GOLD) & M32)
+    mix = np.uint64((int(layer) * MIX) & M32)
+    a = ((keys[:, 0] ^ gold) + keys[:, 2]) & np.uint64(M32)
+    b = (((keys[:, 1] ^ mix) + keys[:, 3]) & np.uint64(M32)) | np.uint64(1)
+    g = np.asarray(gid, np.int64)
+    m, inv = m32[g], minv[g]
+    k = ks[g]
+    i = np.arange(max(kmax, 0), dtype=np.uint64)
+    x = (a[:, None] + i[None, :] * b[:, None]) & np.uint64(M32)
+    q = (x * inv[:, None]) >> np.uint64(32)
+    rem = x - q * m[:, None]
+    rem = np.where(rem >= m[:, None], rem - m[:, None], rem)
+    live = i[None, :].astype(np.int64) < k[:, None]
+    tgt = (np.asarray(offs, np.int64)[g][:, None] + rem.astype(np.int64))
+    region = tgt >> r_bits
+    tile = np.broadcast_to((np.arange(n) // LANE_THREADS)[:, None],
+                           tgt.shape)
+    off_g = np.asarray(offs, np.int64)[g]
+    has = k > 0
+    lo = np.where(has, off_g >> r_bits, np.iinfo(np.int64).max)
+    hi = np.where(has, (off_g + m.astype(np.int64) - 1) >> r_bits, -1)
+    nt = -(-n // LANE_THREADS)
+    pad = nt * LANE_THREADS - n
+    t_lo = np.pad(lo, (0, pad), constant_values=np.iinfo(np.int64).max
+                  ).reshape(nt, LANE_THREADS).min(1)
+    t_hi = np.pad(hi, (0, pad), constant_values=-1).reshape(
+        nt, LANE_THREADS).max(1)
+    spans = t_hi - t_lo + 1
+    inside = ((region >= t_lo[tile]) & (region <= t_hi[tile])) | ~live
+    if not inside.all():
+        raise AssertionError("a probe left its tile's region range")
+    tgt, region, tile = tgt[live], region[live], tile[live]
+    counts = np.bincount(region, minlength=regions)
+    # scan
+    start = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    per = -(-counts // chunk)
+    items = [(r, int(start[r]) + j * chunk,
+              int(min(start[r] + (j + 1) * chunk, start[r] + counts[r])),
+              int(per[r]) > 1)
+             for r in range(regions) for j in range(int(per[r]))]
+    # bin: each region's list, its tiles' runs in tile order
+    order = np.lexsort((tile, region))
+    lists = (tgt[order] & ((1 << r_bits) - 1)).astype(np.uint32)
+    # own
+    rwords = 1 << (r_bits - 5)
+    out = words.view(np.uint32)
+    for r, s, e, shared in items:
+        w0 = r * rwords
+        nw = min(rwords, n_words - w0)
+        bits = np.zeros((nw * 32,), bool)
+        bits[lists[s:e]] = True
+        mine = np.packbits(bits, bitorder="little").view("<u4")
+        # One item loads, ORs and stores its region; each of several ORs
+        # its words from zero into the arena: an OR either way.
+        out[w0:w0 + nw] |= mine
+    return {"region_bits": r_bits, "regions": regions,
+            "counts": counts, "items": items,
+            "shared_items": sum(1 for it in items if it[3]),
+            "probes": int(counts.sum()),
+            "max_tile_span": int(spans.max()) if spans.size else 0}
 
 
 def bloom_scatter_plain(words: torch.Tensor, keys: torch.Tensor,
@@ -81,18 +222,25 @@ def bloom_scatter_plain(words: torch.Tensor, keys: torch.Tensor,
 
 def bloom_scatter(words: torch.Tensor, keys: torch.Tensor,
                   gid: torch.Tensor, offs: torch.Tensor, ms: torch.Tensor,
-                  ks: torch.Tensor, layer: int) -> torch.Tensor:
+                  ks: torch.Tensor, layer: int,
+                  kmax: int | None = None) -> torch.Tensor:
     """OR the probe bits of ``keys`` into ``words`` (in place; returned).
 
     ``words`` int32[W] arena; ``keys`` int32[B, 4] (uint32 bit
     patterns); ``gid`` int32[B] group of each lane; ``offs`` int64[G]
     bit offsets, ``ms`` int32[G] layer sizes (bits), ``ks`` int32[G]
     probe counts. Every probe must land inside the arena. CUDA tensors
-    launch K5; CPU tensors run the plain version."""
+    launch K5 (``kmax``, the largest of ``ks`` when the caller knows it
+    on the host, spares the kernel's wrapper a read of ``ks`` off the
+    card; one below a group's k traps the kernel); CPU tensors run the
+    plain version (and raise on such a ``kmax``)."""
     if words.device.type == "cuda":
         from ct_mapreduce_tpu_torch.ops import bloom_cuda
 
-        return bloom_cuda.scatter(words, keys, gid, offs, ms, ks, layer)
+        return bloom_cuda.scatter(words, keys, gid, offs, ms, ks, layer,
+                                  kmax)
     if words.device.type == "cpu":
+        if kmax is not None:
+            _check_kmax(kmax, ks)
         return bloom_scatter_plain(words, keys, gid, offs, ms, ks, layer)
     raise ValueError(f"no Bloom scatter path for device {words.device}")

@@ -18,7 +18,7 @@ Usage::
 
 Prints one line per stage, PASS or FAIL, and a summary; on the card it
 then times stage 9 at 2^20 lanes (8192 tiles of 128) with CUDA events
-around back-to-back launches. Exit code 0 iff every stage passed.
+around back-to-back launches, queued while the card spins. Exit code 0 iff every stage passed.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ct_mapreduce_tpu_torch.ops import cuda_build
+from ct_mapreduce_tpu_torch.tools.kernel_times import cuda_ms
 
 LANES = 128  # one tile of lanes
 WORDS = 64  # 256-byte rows, big-endian words
@@ -90,6 +91,107 @@ def cert_words(lanes: int = LANES) -> tuple[np.ndarray, np.ndarray]:
         f = hostder.parse_cert(der)
         expected[i] = sum(f.serial) + len(f.serial) * 1000
     return words, expected[None, :]
+
+
+def crafted_serial_rows(seed: int = 0, copies: int = 4) -> np.ndarray:
+    """uint32[WORDS, n] rows for stage 9's edges: headers in long form of
+    1-3 length octets, a version whose content, or a serial header or
+    serial whose bytes, run past the kernel's window (WINDOW_WORDS) and
+    past the row's end, serials of length 0 and 255, a missing version, a
+    serial tag that is not INTEGER. Each case ``copies`` times, the bytes
+    after its headers random (from ``seed``)."""
+    cases = [
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x03\x02\x01\x02\x02\x14",
+        b"\x30\x83\x01\x00\x00\x30\x81\xf0\xa0\x03\x02\x01\x02\x02\x10",
+        b"\x30\x80\x30\x83\x01\x00\x00\xa0\x03\x02\x01\x02\x02\x08",
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x20",  # serial header past
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x13",  # header at the edge
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x18",  # header across it
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x82\x01\x00",  # past the row
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x81\xf5",  # header at 253
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x03\x02\x01\x02\x02\x1e",  # past
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x03\x02\x01\x02\x02\x81\xff",
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x03\x02\x01\x02\x02\x82\x12\x34",
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x03\x02\x01\x02\x02\x80\x00\x30",
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x03\x02\x01\x02\x02\x00",
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\x02\x10",  # no version
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x03\x02\x01\x02\x04\x10",
+        b"\x30\x82\x01\x00\x30\x82\x00\xf0\xa0\x03\x02\x01\x02\x02\x83\x00\x10\x00",
+        b"\x30\x81\xff\x30\x81\xfc\xa0\x03\x02\x01\x02\x02\x15",
+    ]
+    rng = np.random.default_rng(seed)
+    rows = []
+    for head in cases:
+        for _ in range(copies):
+            row = rng.integers(0, 256, ROW_BYTES, dtype=np.uint8)
+            row[:len(head)] = np.frombuffer(head, np.uint8)
+            rows.append(np.frombuffer(row.tobytes(), ">u4").astype(np.uint32))
+    return np.stack(rows, 1)
+
+
+#: Stage 9's window (``csrc/mosaic_probe.cu`` kWindowWords): the words of
+#: a row each lane loads at once; a read past them goes to the row.
+WINDOW_WORDS = 9
+
+
+def serial_window_model(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """NumPy model of stage 9's kernel over uint32[WORDS, n] words: its
+    header reads of four bytes from the window (a funnel shift of two
+    words) or, past it, byte by byte clipped into the row, and the
+    serial's byte sum a masked word at a time. Returns (int32[1, n],
+    bool[n] lanes that read past the window)."""
+    w = np.asarray(words, np.uint32).astype(np.int64)
+    n = w.shape[1]
+    lanes = np.arange(n)
+    win = w[:WINDOW_WORDS]
+    past = np.zeros((n,), bool)
+
+    def byte(q):
+        qc = np.clip(q, 0, ROW_BYTES - 1)
+        return (w[qc >> 2, lanes] >> ((3 - (qc & 3)) * 8)) & 0xFF
+
+    def tlv(q):
+        fast = (q >= 0) & (q + 3 < 4 * WINDOW_WORDS)
+        k = np.clip(q >> 2, 0, WINDOW_WORDS - 1)
+        sh = (q & 3) * 8
+        v_win = ((win[k, lanes] << sh) | (
+            win[np.minimum(k + 1, WINDOW_WORDS - 1), lanes] >> (32 - sh))) \
+            & 0xFFFFFFFF
+        v_row = ((byte(q) << 24) | (byte(q + 1) << 16) | (byte(q + 2) << 8)
+                 | byte(q + 3))
+        past[~fast] = True
+        v = np.where(fast, v_win, v_row)
+        l0, l1, l2 = (v >> 16) & 0xFF, (v >> 8) & 0xFF, v & 0xFF
+        long_form = l0 >= 0x80
+        nlen = np.where(long_form, l0 & 0x7F, 0)
+        content = np.where(long_form,
+                           np.where(nlen == 1, l1, (l1 << 8) | l2), l0)
+        return v >> 24, 2 + nlen, content
+
+    zero = np.zeros((n,), np.int64)
+    _t0, h0, _c0 = tlv(zero)
+    _t1, h1, _c1 = tlv(h0)
+    el = h0 + h1
+    tag_e, h_e, c_e = tlv(el)
+    ser_el = np.where(tag_e == 0xA0, el + h_e + c_e, el)
+    tag_s, h_s, c_s = tlv(ser_el)
+    ser_off = ser_el + h_s
+    lo = np.maximum(ser_off, 0)
+    hi = np.minimum(ser_off + c_s, ROW_BYTES)
+    total = zero.copy()
+    for k in range(WORDS):
+        on = (4 * k < hi) & (4 * k + 4 > lo)
+        a = np.clip(lo - 4 * k, 0, 4)
+        b = np.clip(hi - 4 * k, 0, 4)
+        keep = ((0xFFFFFFFF >> (8 * a)) & ~(0xFFFFFFFF >> (8 * b))) \
+            & 0xFFFFFFFF
+        x = np.where(on, w[k] & keep, 0)
+        total += (x & 0xFF) + ((x >> 8) & 0xFF) + ((x >> 16) & 0xFF) + (x >> 24)
+        if k >= WINDOW_WORDS:
+            past |= on
+    ok = tag_s == 0x02
+    out = np.where(ok, total + c_s * 1000, 0).astype(np.int32)
+    return out[None, :], past
 
 
 def to_tensor(words: np.ndarray, device) -> torch.Tensor:
@@ -312,21 +414,8 @@ def run_ladder(device, log=print) -> list[bool]:
 
 def time_stage(stage: int, words: torch.Tensor, reps: int = 25,
                calls: int = 20) -> list[float]:
-    """Milliseconds per launch of a stage kernel: ``reps`` timings, each
-    ``calls`` back-to-back launches between one pair of CUDA events."""
-    for _ in range(3):
-        kernel_stage(stage, words)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(reps):
-        start.record()
-        for _ in range(calls):
-            kernel_stage(stage, words)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return times
+    """Milliseconds per launch of a stage kernel (:func:`cuda_ms`)."""
+    return cuda_ms(lambda: kernel_stage(stage, words), reps, calls)
 
 
 def main(argv=None) -> int:

@@ -12,6 +12,9 @@ imports nothing of JAX, so it also runs where JAX is not installed:
 """
 
 import hashlib
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -378,6 +381,31 @@ def test_walker_kernel_checks_its_inputs(cuda):
     before = der_kernel_cuda.LAUNCHES
     empty = der_kernel_cuda.walk(d[:0], ln[:0], True, 61)
     assert empty.serials.shape == (0, 46) and der_kernel_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("rows", ["cert", "random", "crafted"])
+def test_serial_stage_window_matches_plain(cuda, rows):
+    """Stage 9's staged window on certificate rows, random words and
+    crafted rows whose version, serial header or serial runs past the
+    window and past the row: equal to the plain version and to the model
+    of the window (and, on certificates, to the host parser)."""
+    expected = None
+    if rows == "cert":
+        words, expected = mosaic_probe.stage_inputs(
+            mosaic_probe.SERIAL_STAGE, 1 << 16)
+    elif rows == "random":
+        words = mosaic_probe.random_words(5, 1 << 16)
+    else:
+        words = mosaic_probe.crafted_serial_rows(5, copies=64)
+    w = mosaic_probe.to_tensor(words, cuda)
+    got = mosaic_probe.run_stage(mosaic_probe.SERIAL_STAGE, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mosaic_probe.plain_stage(
+        mosaic_probe.SERIAL_STAGE, w))
+    model, _past = mosaic_probe.serial_window_model(words)
+    np.testing.assert_array_equal(got.cpu().numpy(), model)
+    if expected is not None:
+        np.testing.assert_array_equal(got.cpu().numpy(), expected)
 
 
 @pytest.mark.parametrize("lanes", [mosaic_probe.LANES, 1000])
@@ -756,6 +784,150 @@ def test_bloom_kernel_matches_plain_fused_high_offsets(cuda):
         w0, w1 = int(offs[g]) // 32, int(offs[g] + ms[g]) // 32
         np.testing.assert_array_equal(got_np[w0:w1], host[w0:w1])
     assert int(np.count_nonzero(got_np)) == int(np.count_nonzero(host))
+    # A second dispatch into the same (now non-zero) arena, its lanes in
+    # shuffled group order: the kernel's owners load what is there.
+    keys2 = rng.integers(0, 2**32, (4097, 4), np.uint32)
+    gid2 = rng.permutation(np.arange(4097) % 3).astype(np.int32)
+    k2, g2, _o, _m, _k = _bloom_args(cuda, keys2, gid2, offs, ms, ks)
+    bloom.bloom_scatter(got, k2, g2, ot, mt, kst, 6)
+    bloom.bloom_scatter_plain(want, k2, g2, ot, mt, kst, 6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _k5_case(name: str, rng):
+    """(keys, gid, offs, ms, ks, arena words, dispatches) of a K5 edge
+    case: uint32 keys, int32 gid, the group vectors, a uint32 arena to
+    start from (non-zero in some cases) and the lane cuts of its
+    dispatches into that one arena."""
+    from ct_mapreduce_tpu_torch.filter.cascade import layer_params
+
+    region = 1 << 18  # the kernel's least region (ops/bloom.py)
+    if name == "spanning_and_shared":
+        # one group over four regions, then 40 small groups in one region
+        ms = np.array([3 * region + 96] + [2048] * 40, np.int64)
+        ks = np.array([7] + [3] * 40, np.int64)
+        n = 60_000
+        gid = np.where(np.arange(n) < 40_000, 0,
+                       1 + np.arange(n) % 40).astype(np.int32)
+    elif name in ("k1_k16_m64", "n1", "n255", "n257"):
+        # the last two groups start off a word boundary
+        ms = np.array([64, 4096, 64, 1 << 20, 100, 28], np.int64)
+        ks = np.array([16, 1, 1, 16, 5, 2], np.int64)
+        n = {"n1": 1, "n255": 255, "n257": 257}.get(name, 70_001)
+        gid = rng.integers(0, 6, n).astype(np.int32)
+    elif name == "dense_region":
+        # one region, many work items of one group
+        ms, ks, n = np.array([1 << 17], np.int64), np.array([7], np.int64), 1 << 16
+        gid = np.zeros((n,), np.int32)
+    else:  # "zipf_shuffled", "zipf_two_dispatches"
+        sizes = rng.multinomial(200_000 - 300, np.full(300, 1 / 300)) + 1
+        params = np.array([layer_params(int(c), 0.01) for c in sizes])
+        ms, ks, n = params[:, 0], params[:, 1], 200_000
+        gid = np.repeat(np.arange(300), sizes).astype(np.int32)
+        if name == "zipf_shuffled":
+            gid = rng.permutation(gid)
+    offs = np.concatenate(([0], np.cumsum(ms)[:-1]))
+    words = np.zeros((int(ms.sum()) // 32,), np.uint32)
+    if name in ("zipf_two_dispatches", "spanning_and_shared", "n257"):
+        words = (rng.integers(0, 2**32, words.shape, np.uint32)
+                 * (rng.random(words.shape) < 0.05)).astype(np.uint32)
+    cuts = [0, n // 2, n] if name == "zipf_two_dispatches" else [0, n]
+    keys = rng.integers(0, 2**32, (n, 4), np.uint32)
+    return keys, gid, offs, ms, ks, words, cuts
+
+
+K5_CASES = ["spanning_and_shared", "k1_k16_m64", "n1", "n255", "n257",
+            "dense_region", "zipf_shuffled", "zipf_two_dispatches"]
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+def test_bloom_kernel_edge_cases_match_plain(cuda, case):
+    """K5 against its plain version (and the NumPy model of its
+    schedule) on arenas non-zero on entry, several dispatches into one
+    arena, shuffled gid, groups over several regions and regions shared
+    by many groups, k 1 and 16, m 64, n 1 / 255 / 257."""
+    from ct_mapreduce_tpu_torch.ops import bloom, bloom_cuda
+
+    rng = np.random.default_rng(K5_CASES.index(case) + 40)
+    keys, gid, offs, ms, ks, words, cuts = _k5_case(case, rng)
+    got = torch.from_numpy(words.view(np.int32).copy()).to(cuda)
+    want = got.clone()
+    model = words.copy()
+    before = bloom_cuda.LAUNCHES
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        kt, gt, ot, mt, kst = _bloom_args(cuda, keys[lo:hi], gid[lo:hi],
+                                          offs, ms, ks)
+        bloom.bloom_scatter(got, kt, gt, ot, mt, kst, 9,
+                            kmax=int(ks.max()) if lo else None)
+        bloom.bloom_scatter_plain(want, kt, gt, ot, mt, kst, 9)
+        bloom.binned_model(model, keys[lo:hi], gid[lo:hi], offs, ms, ks, 9)
+    torch.cuda.synchronize()
+    assert bloom_cuda.LAUNCHES == before + len(cuts) - 1
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), model)
+
+
+@pytest.mark.parametrize("arena_bits", [1 << 22, 161 << 20, 1 << 29, 9 << 26])
+def test_bloom_kernel_schedules_match_plain(cuda, arena_bits):
+    """K5 over arenas of 16, 644 and 2,048 regions of 2^18 bits and of
+    1,152 of 2^19 (past 2^29 bits the region grows): 300 groups spread
+    over the arena, lanes in random group order, so that past 256
+    regions every tile spans most of them; and each prefix of its
+    phases: only the whole launch writes, and the same words."""
+    from ct_mapreduce_tpu_torch.ops import bloom, bloom_cuda
+
+    rng = np.random.default_rng(arena_bits % 1000)
+    ms = np.full(300, (arena_bits // 300) & ~31, np.int64)
+    ks = rng.integers(1, 17, 300)
+    n = 200_000
+    gid = rng.integers(0, 300, n).astype(np.int32)
+    offs = np.concatenate(([0], np.cumsum(ms)[:-1]))
+    keys = rng.integers(0, 2**32, (n, 4), np.uint32)
+    kt, gt, ot, mt, kst = _bloom_args(cuda, keys, gid, offs, ms, ks)
+    want = torch.zeros((int(ms.sum()) // 32,), dtype=torch.int32,
+                       device=cuda)
+    bloom.bloom_scatter_plain(want, kt, gt, ot, mt, kst, 2)
+    for phases in range(len(bloom_cuda.PHASES) + 1):
+        got = torch.zeros_like(want)
+        bloom_cuda.scatter_phases(got, kt, gt, ot, mt, kst, 2,
+                                  phases=phases)
+        torch.cuda.synchronize()
+        if phases == len(bloom_cuda.PHASES):
+            assert torch.equal(got, want)
+        else:
+            assert not got.any()  # only the owner pass writes the arena
+
+
+_SHORT_KMAX = """
+import torch
+from ct_mapreduce_tpu_torch.ops import bloom_cuda
+dev = torch.device("cuda")
+keys = torch.arange(1024, dtype=torch.int32, device=dev).view(256, 4)
+gid = torch.zeros((256,), dtype=torch.int32, device=dev)
+words = torch.zeros((64,), dtype=torch.int32, device=dev)
+offs = torch.zeros((1,), dtype=torch.int64, device=dev)
+ms = torch.tensor([2048], dtype=torch.int32, device=dev)
+ks = torch.tensor([5], dtype=torch.int32, device=dev)
+bloom_cuda.scatter(words, keys, gid, offs, ms, ks, 0, kmax=5)
+torch.cuda.synchronize()
+print("kmax 5:", int(torch.count_nonzero(words)) > 0, flush=True)
+bloom_cuda.scatter(words, keys, gid, offs, ms, ks, 0, kmax=4)
+torch.cuda.synchronize()
+print("kmax 4: no trap", flush=True)
+"""
+
+
+def test_bloom_kernel_traps_a_short_kmax(cuda):
+    """A kmax below a group's k traps K5 before it writes anything: the
+    launch fails, raised at the next synchronising call. In a process of
+    its own, since a trap ends that process's CUDA context."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _SHORT_KMAX], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert "kmax 5: True" in res.stdout, res.stdout + res.stderr
+    assert "no trap" not in res.stdout
+    assert res.returncode != 0
 
 
 def test_bloom_kernel_checks_its_inputs(cuda):
@@ -772,6 +944,10 @@ def test_bloom_kernel_checks_its_inputs(cuda):
     flat = torch.zeros((8 * 4 + 1,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         bloom_cuda.scatter(words, flat[1:].view(8, 4), gt, ot, mt, kst, 0)
+    with pytest.raises(ValueError, match="kmax"):
+        bloom_cuda.scatter(words, kt, gt, ot, mt, kst, 0, kmax=33)
+    with pytest.raises(ValueError, match="phases"):
+        bloom_cuda.scatter_phases(words, kt, gt, ot, mt, kst, 0, phases=6)
 
 
 @pytest.mark.parametrize("fmt", ["fl01", "fl02"])

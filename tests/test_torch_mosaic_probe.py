@@ -55,6 +55,24 @@ def test_serial_stage_matches_host_parser_oracle(jprobe):
     assert len(np.unique(oracle)) > 40
 
 
+def test_serial_window_model_matches_plain_and_oracle(jprobe):
+    """The model of stage 9's kernel (a window of WINDOW_WORDS words,
+    reads past it from the row) against the host-parser oracles of both
+    certificate corpora and the plain version on random words and on
+    crafted rows whose version, serial header or serial runs past the
+    window and past the row."""
+    for w, oracle in (jprobe._cert_rows(), tprobe.cert_words()):
+        got, past = tprobe.serial_window_model(w)
+        np.testing.assert_array_equal(got, oracle)
+        assert not past.any()  # the window covers the corpus
+    for w in (tprobe.random_words(7, 512), tprobe.crafted_serial_rows(7)):
+        got, past = tprobe.serial_window_model(w)
+        want = tprobe.plain_stage(tprobe.SERIAL_STAGE,
+                                  tprobe.to_tensor(w, "cpu")).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert past.any() and not past.all()
+
+
 def test_cli_on_cpu():
     out = subprocess.run(
         [sys.executable, "-m", "ct_mapreduce_tpu_torch.tools.mosaic_probe",

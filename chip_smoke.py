@@ -30,9 +30,11 @@ Phases, none of them caught — any failure exits non-zero:
 4. the probe ladder: its command-line path on the card (each stage at
    one tile against its plain version, stage 9 against the host
    parser, stage 9 timed at 2^20 lanes), then every stage at 2^20 lanes
-   against its plain version, timed (stage 9 also on random words and on
-   crafted rows whose headers or serial run past its window and the
-   row);
+   against its plain version, timed beside its bound in 32-byte
+   sectors (stage 9 also on random words and on crafted rows whose
+   headers or serial run past its window and the row; stages 4 and 8
+   also at widths off the 128-lane tile and on their edge rows, stage 4
+   also against its one-pass model);
 5. the walker main path, the default lane: ``IngestModel`` at
    ``batchSize`` 2^20 from ``tableBits`` 21, with an issuer
    CN filter that keeps 12 of 16 issuers and a 64-byte prefix of a
@@ -198,6 +200,9 @@ MUTANTS = 8192  # mutated rows beside the 2^20 stream rows in phase 3
 # crafted rows cut to these widths in views that start unaligned.
 ODD_WIDTHS = (193, 2047)
 FOOTPRINT_CHUNK = 1 << 16  # lanes per footprint count (memory)
+# Widths off stage 8's 128-lane tile, at which phase 4 also holds the
+# one-pass stage 4 and the tiled stage 8 to their plain versions.
+PROBE_ODD_WIDTHS = (1, 127, 129, 1000, (1 << 16) + 5)
 # A read byte costs a thread at least an address add, a load and the
 # shift/mask or compare that uses it: integer operations per byte read,
 # for the operations half of a walker or probe bound.
@@ -301,15 +306,17 @@ def sass_report(out_dir: str) -> dict:
             r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
             sass, re.M))
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
-        kernels = {m.group(1)[-90:]: {"registers": int(m.group(5)),
-                                      "stack_bytes": int(m.group(2)),
-                                      "spill_store_bytes": int(m.group(3)),
-                                      "spill_load_bytes": int(m.group(4))}
-                   for m in re.finditer(
-                       r"Function properties for (\S+)\n\s+(\d+) bytes "
-                       r"stack frame, (\d+) bytes spill stores, (\d+) "
-                       r"bytes spill loads\n.*?Used (\d+) registers",
-                       ptxas)}
+        kernels = {}
+        for m in re.finditer(
+                r"Function properties for (\S+)\n\s+(\d+) bytes stack "
+                r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                r"loads\n.*?Used (\d+) registers([^\n]*)", ptxas):
+            smem = re.search(r"(\d+) bytes smem", m.group(6))
+            kernels[m.group(1)[-90:]] = {
+                "registers": int(m.group(5)), "stack_bytes": int(m.group(2)),
+                "spill_store_bytes": int(m.group(3)),
+                "spill_load_bytes": int(m.group(4)),
+                "static_smem_bytes": int(smem.group(1)) if smem else 0}
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", ptxas)]
         spill_loads = [int(x) for x in re.findall(r"(\d+) bytes spill loads", ptxas)]
         mem = {op: ops.get(op, 0) for op in MEMORY_OPCODES}
@@ -329,7 +336,9 @@ def sass_report(out_dir: str) -> dict:
         check(k["spill_store_bytes"] == 0 and k["spill_load_bytes"] == 0,
               f"a K6 kernel spills: {kname} {k}")
     for name, pick in (("k5", lambda kname: True),
-                       ("probe", lambda kname: "k_serial_extract" in kname)):
+                       ("probe", lambda kname: any(k in kname for k in (
+                           "k_serial_extract", "k_fori_masked",
+                           "k_tlv_walk")))):
         for kname, k in report[name]["kernels"].items():
             if pick(kname):
                 print(f"sass {name} kernel ...{kname[-60:]}: {k}", flush=True)
@@ -870,13 +879,25 @@ def probe_check(device, seed: int) -> dict:
         if expected is not None:
             check(np.array_equal(got.cpu().numpy(), expected),
                   f"probe stage {name} != host parser at {n} lanes")
+        edges = []
         if stage == mp.SERIAL_STAGE:  # the window's edges
-            for what, rows in (("crafted", mp.crafted_serial_rows(seed, 64)),
-                               ("random", mp.random_words(seed, 1 << 16))):
-                r = mp.to_tensor(rows, device)
-                check(torch.equal(mp.kernel_stage(stage, r),
-                                  mp.plain_stage(stage, r)),
-                      f"probe stage {name} != plain on {what} rows")
+            edges = [("crafted", mp.crafted_serial_rows(seed, 64)),
+                     ("random", mp.random_words(seed, 1 << 16))]
+        if stage in (4, 8):  # one pass; tiles, widths off the tile
+            edges = [(f"random {width}-lane", mp.random_words(seed + width,
+                                                               width))
+                     for width in PROBE_ODD_WIDTHS]
+            edges.append(("crafted", mp.crafted_masked_rows(1000)
+                          if stage == 4 else mp.crafted_tlv_rows(seed, 64)))
+        for what, rows in edges:
+            r = mp.to_tensor(rows, device)
+            got_e = mp.kernel_stage(stage, r)
+            check(torch.equal(got_e, mp.plain_stage(stage, r)),
+                  f"probe stage {name} != plain on {what} rows")
+            if stage == 4:
+                check(np.array_equal(got_e.cpu().numpy(),
+                                     mp.fori_masked_model(rows)),
+                      f"probe stage {name} != its model on {what} rows")
         k_ms = mp.time_stage(stage, w, TIMED_REPS, KERNEL_CALLS_PER_TIMING)
         p_ms = cuda_times(lambda: mp.plain_stage(stage, w), PLAIN_REPS, warmup=1)
         lib_ms = None
@@ -889,24 +910,38 @@ def probe_check(device, seed: int) -> dict:
             check(torch.equal(lib(), got), f"torch.sum != stage {name}")
             lib_ms = median(cuda_times(lib, TIMED_REPS, KERNEL_CALLS_PER_TIMING))
         words_read = reads = 0
-        for lo in range(0, n, FOOTPRINT_CHUNK):
-            wr, rd = mp.footprint(stage, w[:, lo:lo + FOOTPRINT_CHUNK])
+        sectors = 0.0
+        for lo in range(0, n, FOOTPRINT_CHUNK):  # chunks of whole sectors
+            wr, sec, rd = mp.footprint(stage, w[:, lo:lo + FOOTPRINT_CHUNK])
             words_read += int(wr.sum())
+            sectors += float(sec.sum())
             reads += int(rd.sum())
-        byte_ms = (words_read * 4 + n * 4) / HBM_BYTES_PER_S * 1e3
-        op_ms = reads * OPS_PER_BYTE_READ / INT32_OPS_PER_S * 1e3
+        sectors = round(sectors)
+        byte_ms = (sectors * 32 + n * 4) / HBM_BYTES_PER_S * 1e3
+        # Stage 4's function needs its one-pass form's operations on every
+        # word, not a few a byte read.
+        ops = (n * mp.WORDS * mp.MASKED_OPS_PER_WORD if stage == 4
+               else reads * OPS_PER_BYTE_READ)
+        op_ms = ops / INT32_OPS_PER_S * 1e3
         st = {"name": name, "lanes": n, "max_abs_err": err,
               "kernel_ms": median(k_ms), "kernel_ms_min": min(k_ms),
               "kernel_ms_max": max(k_ms), "plain_ms": median(p_ms),
               "library_ms": lib_ms, "words_per_lane": words_read / n,
+              "sectors_per_lane": sectors / n,
               "reads_per_lane": reads / n, "bytes_bound_ms": byte_ms,
               "ops_bound_ms": op_ms, "bound_ms": max(byte_ms, op_ms),
               "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+              "edge_rows": [what for what, _rows in edges],
               "ladder_launches": ladder["probe"][stage]}
+        st["share_of_bound"] = st["bound_ms"] / st["kernel_ms"]
         stages.append(st)
-        print(f"phase 4: probe {name} == plain at {n} lanes; kernel "
-              f"{st['kernel_ms']:.4f} ms, plain {st['plain_ms']:.3f} ms, "
-              f"bound {st['bound_ms']:.4f} ms ({st['bound_by']})"
+        print(f"phase 4: probe {name} == plain at {n} lanes"
+              + (f" and on {len(edges)} edge sets" if edges else "")
+              + f"; kernel {st['kernel_ms']:.4f} ms, plain "
+              f"{st['plain_ms']:.3f} ms, bound {st['bound_ms']:.4f} ms "
+              f"({st['bound_by']}; {words_read / n:.2f} words, "
+              f"{sectors / n:.2f} sectors a lane; ops "
+              f"{op_ms:.4f} ms), {st['share_of_bound']:.1%} of bound"
               + (f", torch.sum {lib_ms:.4f} ms" if lib_ms else ""), flush=True)
     return {"ladder_launches": ladder, "stages": stages}
 

@@ -13,12 +13,13 @@
 // bits) with lanes on the minor axis, so a warp reading word k of its
 // 32 lanes reads 128 consecutive bytes; out int32[1, lanes].
 //
-// What bounds them on an H100: bytes. Stages 0, 4 and 5 read every word
-// of a lane (256 B), the others one word per byte read; each does a few
-// integer operations a byte. Stages 0-8 stage nothing in shared memory:
-// a lane's words are read once each, coalesced across the warp. Stage 9
-// loads a window of each row at once and decodes it from shared memory
-// (see k_serial_extract).
+// What bounds them on an H100: bytes, counted in the 32-byte sectors a
+// lane's reads touch (a data-dependent read of word k costs a sector
+// that only its 7 neighbouring lanes can share). Stages 0, 4 and 5 read
+// every word of a lane (256 B) once, coalesced across the warp; stages
+// 1-3, 6 and 7 read one word per byte read from global memory. Stage 8
+// stages whole rows in shared memory and walks them there (see
+// k_tlv_walk), stage 9 a window of each row (see k_serial_extract).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,6 +57,21 @@ __device__ __forceinline__ ProbeTlv probe_tlv(const Read& read, int off) {
   const int l1 = read(off + 2), l2 = read(off + 3);
   ProbeTlv t;
   t.tag = read(off);
+  t.content = long_form ? derwalk::long_form_len(nlen == 1 ? 1 : 2, l1, l2, 0) : l0;
+  t.hdr = 2 + nlen;
+  return t;
+}
+
+// probe_tlv from the header's four bytes at once, byte off in the top
+// 8 bits.
+__device__ __forceinline__ ProbeTlv tlv_of(uint32_t v) {
+  const int l0 = static_cast<int>((v >> 16) & 0xFFu);
+  const int l1 = static_cast<int>((v >> 8) & 0xFFu);
+  const int l2 = static_cast<int>(v & 0xFFu);
+  const bool long_form = l0 >= 0x80;
+  const int nlen = long_form ? (l0 & 0x7F) : 0;
+  ProbeTlv t;
+  t.tag = static_cast<int>(v >> 24);
   t.content = long_form ? derwalk::long_form_len(nlen == 1 ? 1 : 2, l1, l2, 0) : l0;
   t.hdr = 2 + nlen;
   return t;
@@ -109,16 +125,35 @@ PROBE_KERNEL(k_fori_reads) {
   out[lane] = acc;
 }
 
-// Stage 4: a masked reduction inside a loop.
+// Stage 4: the original's masked reduction inside a loop of
+// kMaskedTrips trips, trip i summing (w & 0xFF) over the words whose
+// (w >> 8) % 3 is i % 3. A word of residue m is summed once for each
+// trip i with i % 3 == m, so one pass over the row, each low byte
+// weighed by that count, gives the same sum with the row read once and
+// not kMaskedTrips times (stage 5's traffic). At most 64 x 255 x 3 =
+// 48,960: the int32 sum cannot overflow.
+constexpr int kMaskedTrips = 8;
+__host__ __device__ constexpr int trips_with_residue(int m) {
+  return (kMaskedTrips + 2 - m) / 3;
+}
+
+// x % 3 for every uint32 x: the quotient by a multiply-high with
+// ceil(2^33 / 3), exact over the whole range.
+__device__ __forceinline__ uint32_t mod3(uint32_t x) {
+  return x - 3u * (__umulhi(x, 0xAAAAAAABu) >> 1);
+}
+
 PROBE_KERNEL(k_fori_masked) {
   const long long lane = lane_id();
   if (lane >= lanes) return;
+  constexpr int kW0 = trips_with_residue(0), kW1 = trips_with_residue(1),
+                kW2 = trips_with_residue(2);
   int acc = 0;
-  for (int i = 0; i < 8; ++i)
-    for (int k = 0; k < kWords; ++k) {
-      const uint32_t word = __ldg(w + k * lanes + lane);
-      if ((word >> 8) % 3u == static_cast<uint32_t>(i % 3)) acc += static_cast<int>(word & 0xFFu);
-    }
+  for (int k = 0; k < kWords; ++k) {
+    const uint32_t word = __ldg(w + k * lanes + lane);
+    const uint32_t m = mod3(word >> 8);
+    acc += static_cast<int>(word & 0xFFu) * (m == 0u ? kW0 : (m == 1u ? kW1 : kW2));
+  }
   out[lane] = acc;
 }
 
@@ -156,18 +191,85 @@ PROBE_KERNEL(k_tlv_step) {
 
 // Stage 8: a chained walk of 12 headers, descending into constructed
 // tags and skipping primitives.
-PROBE_KERNEL(k_tlv_walk) {
-  const long long lane = lane_id();
-  if (lane >= lanes) return;
-  const Clipped read{LaneWords{w + lane, lanes, kRowBytes}};
+//
+// Each header's offset waits on the last header's bytes, and the random
+// rows of the ladder send the walk all over the row: read from global
+// memory (the stage's first design), a lane's walk was a chain of 48
+// dependent byte loads touching ~7 of the row's 8 sectors of 32 B. Here
+// a block stages a tile of kThreads lanes' whole rows (64 x 128 words,
+// 32 KiB) in shared memory, read once and coalesced, and walks it
+// there: tile[k * kThreads + t] holds word k of the tile's lane t, so
+// thread t reads bank t % 32 whatever word its walk needs (no
+// conflicts). A header is then one 4-byte read, two shared loads and a
+// funnel shift. Each thread copies and reads only its own lane's
+// column, so no barrier is needed: cp.async.wait_all orders a thread's
+// own copies before its reads.
+//
+// Each thread copies its column with cp.async (no registers held for the
+// 64 loads), waits and walks; with 32 KiB a block, up to 6 blocks are
+// resident on an SM and fill each other's waits. The kernel reads the whole row, 256 B a
+// lane, at about stage 0's rate. Lanes past the last are neither copied
+// nor stored, so any width is covered.
+constexpr int kTileWords = kWords * kThreads;
+
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// Waits until every cp.async of this thread has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A lane's row as a column of a staged tile: word k at col[k * kThreads].
+// Reads are clipped into the row as Clipped does. The walk's offsets stay
+// in 0..kWrap-1, so a header's bytes off..off+3 lie in the row and the
+// clip never changes a read; it is kept so that any offset reads as the
+// plain version's does.
+struct TileColumn {
+  const uint32_t* col;
+
+  __device__ __forceinline__ uint32_t byte(int q) const {
+    const int c = q < 0 ? 0 : (q >= kRowBytes ? kRowBytes - 1 : q);
+    return (col[(c >> 2) * kThreads] >> ((3 - (c & 3)) * 8)) & 0xFFu;
+  }
+
+  // Bytes q..q+3, byte q in the top 8 bits.
+  __device__ __forceinline__ uint32_t bytes4(int q) const {
+    if (q >= 0 && q <= kRowBytes - 4) {
+      const int k = q >> 2;
+      const uint32_t hi = col[k * kThreads];
+      const uint32_t lo = col[(k + 1 < kWords ? k + 1 : k) * kThreads];
+      return __funnelshift_l(lo, hi, (q & 3) * 8);
+    }
+    return (byte(q) << 24) | (byte(q + 1) << 16) | (byte(q + 2) << 8) | byte(q + 3);
+  }
+};
+
+__device__ __forceinline__ int tlv_walk(const TileColumn& row) {
   int off = 0, acc = 0;
+#pragma unroll 4
   for (int i = 0; i < 12; ++i) {
-    const ProbeTlv t = probe_tlv(read, off);
+    const ProbeTlv t = tlv_of(row.bytes4(off));
     const bool constructed = (t.tag & 0x20) != 0;
     off = (constructed ? off + t.hdr : off + t.hdr + t.content) % kWrap;
     acc += t.tag;
   }
-  out[lane] = off + acc;
+  return off + acc;
+}
+
+PROBE_KERNEL(k_tlv_walk) {
+  __shared__ uint32_t tile[kTileWords];
+  const long long lane = lane_id();
+  if (lane >= lanes) return;
+  uint32_t* col = tile + threadIdx.x;
+#pragma unroll 16
+  for (int k = 0; k < kWords; ++k) cp_async4(col + k * kThreads, w + k * lanes + lane);
+  cp_async_wait_all();
+  out[lane] = tlv_walk(TileColumn{col});
 }
 
 // Stage 9: the walker fragment on real certificates: Certificate → TBS
@@ -214,19 +316,7 @@ struct SerialWindow {
   }
 
   // probe_tlv from one 4-byte read.
-  __device__ __forceinline__ ProbeTlv tlv(int off) const {
-    const uint32_t v = bytes4(off);
-    const int l0 = static_cast<int>((v >> 16) & 0xFFu);
-    const int l1 = static_cast<int>((v >> 8) & 0xFFu);
-    const int l2 = static_cast<int>(v & 0xFFu);
-    const bool long_form = l0 >= 0x80;
-    const int nlen = long_form ? (l0 & 0x7F) : 0;
-    ProbeTlv t;
-    t.tag = static_cast<int>(v >> 24);
-    t.content = long_form ? derwalk::long_form_len(nlen == 1 ? 1 : 2, l1, l2, 0) : l0;
-    t.hdr = 2 + nlen;
-    return t;
-  }
+  __device__ __forceinline__ ProbeTlv tlv(int off) const { return tlv_of(bytes4(off)); }
 
   // Sum of row bytes lo..hi-1 (0 <= lo, hi <= kRowBytes).
   __device__ __forceinline__ int byte_sum(int lo, int hi) const {

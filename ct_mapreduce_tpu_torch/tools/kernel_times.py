@@ -11,11 +11,12 @@ group by group; and the first 2^20-lane dispatch of filter-scale's
 streamed build (2^24 keys in 1,024 groups, the whole round's arena, the
 dispatch's lanes over the groups it reaches).
 
-Run as a script, it holds K5 at those shapes and probe stage 9 at 2^20
-certificate rows to their plain versions, bit for bit, then times them
-with :func:`cuda_ms`, for the package under ``--tree`` (default: the
-checkout this file is in). An older revision of the port unpacked into
-a directory (it needs ``ops/bloom_cuda.scatter`` and the probe ladder's
+Run as a script, it holds K5 at those shapes, probe stage 9 at 2^20
+certificate rows and probe stages 4 and 8 at 2^20 random rows to their
+plain versions, bit for bit, then times them with :func:`cuda_ms`, for
+the package under ``--tree`` (default: the checkout this file is in).
+An older revision of the port unpacked into a directory (it needs
+``ops/bloom_cuda.scatter`` and the probe ladder's
 ``tools/mosaic_probe.py``, as since K5 was first ported) is so timed by
 this file's yardstick at this file's shapes::
 
@@ -194,6 +195,18 @@ def main(argv=None) -> int:
         lanes=int(w.shape[1]))
     print(f"stage 9: {'==' if same else '!='} plain, "
           f"{doc['stage9']['ms']:.4f} ms", flush=True)
+    del w
+    w = mp.to_tensor(mp.random_words(args.seed, mp.TIMED_TILES * mp.LANES),
+                     dev)
+    for stage in (4, 8):
+        same = torch.equal(mp.kernel_stage(stage, w),
+                           mp.plain_stage(stage, w))
+        ok &= same
+        doc[f"stage{stage}"] = dict(_summary(cuda_ms(
+            lambda: mp.kernel_stage(stage, w))), equal=same,
+            lanes=int(w.shape[1]))
+        print(f"stage {stage}: {'==' if same else '!='} plain, "
+              f"{doc[f'stage{stage}']['ms']:.4f} ms", flush=True)
     doc["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

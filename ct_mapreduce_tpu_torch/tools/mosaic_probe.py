@@ -194,6 +194,87 @@ def serial_window_model(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return out[None, :], past
 
 
+#: Stage 4's loop trips (the original's ``fori_loop(0, 8, ...)``).
+MASKED_TRIPS = 8
+#: Integer operations a word of stage 4's one-pass form: the shift to
+#: (w >> 8), the multiply-high, its shift and the multiply-subtract of the
+#: residue, the byte mask, the compare and select of the weight, the
+#: multiply-add into the sum.
+MASKED_OPS_PER_WORD = 8
+
+
+def mod3_mulhi(x: np.ndarray) -> np.ndarray:
+    """x % 3 of uint32 ``x`` as stage 4's kernel takes it: the quotient
+    by a multiply-high with ceil(2^33 / 3) = 0xAAAAAAAB."""
+    x = np.asarray(x, np.uint32).astype(np.uint64)
+    return (x - 3 * ((x * 0xAAAAAAAB) >> 33)).astype(np.uint32)
+
+
+def fori_masked_model(words: np.ndarray) -> np.ndarray:
+    """NumPy model of stage 4's kernel over uint32[WORDS, n] words: one
+    pass, each word's low byte weighed by the number of trips i in
+    0..MASKED_TRIPS-1 with i % 3 equal to its (w >> 8) % 3 (3, 3, 2).
+    int32[1, n]."""
+    w = np.asarray(words, np.uint32)
+    m = mod3_mulhi(w >> np.uint32(8)).astype(np.int64)
+    weight = (MASKED_TRIPS + 2 - m) // 3
+    total = ((w & 0xFF).astype(np.int64) * weight).sum(0)
+    return total.astype(np.int32)[None, :]
+
+
+def crafted_masked_rows(lanes: int = LANES) -> np.ndarray:
+    """uint32[WORDS, lanes] rows for stage 4's edges, repeated to fill
+    ``lanes``: every word 0xFFFFFFFF or 0; words whose (w >> 8) % 3 is 0,
+    1 or 2, each with low byte 255 and with (w >> 8) at the top of the
+    24-bit range; low bytes 255 everywhere over random high bits; and a
+    row of each residue in turn."""
+    rng = np.random.default_rng(4)
+    top = (1 << 24) - 1  # (w >> 8) at its largest; 0xFFFFFF % 3 == 0
+    cols = [np.full(WORDS, 0xFFFFFFFF), np.zeros(WORDS)]
+    for m in range(3):
+        cols.append(np.full(WORDS, (m << 8) | 0xFF))
+        cols.append(np.full(WORDS, ((top - m) << 8) | 0xFF))
+        cols.append(np.full(WORDS, (top - m) << 8))
+    cols.append(rng.integers(0, 2**32, WORDS, dtype=np.uint64) | 0xFF)
+    cols.append((np.arange(WORDS) % 3 << 8) | 0xFF)
+    cols.append(((top - np.arange(WORDS) % 3) << 8) | 0xFF)
+    rows = np.stack(cols, 1).astype(np.uint32)
+    return np.tile(rows, (1, -(-lanes // len(cols))))[:, :lanes]
+
+
+def crafted_tlv_rows(seed: int = 0, copies: int = 4) -> np.ndarray:
+    """uint32[WORDS, n] rows for stage 8's edges: every byte 0xFF (long
+    form, nlen 127, constructed) or 0; a first header whose content
+    sends the walk to each offset 248-251, so the next 4-byte header
+    read takes the row's last words, with a constructed or a
+    primitive header there; the longest content (65,535, wrapping); the
+    indefinite-length octet 0x80; chains of constructed tags in short
+    and long form. Each case ``copies`` times, the bytes after its
+    headers random (from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    # (header bytes at 0, an offset, the bytes there)
+    cases = [(b"\xff" * ROW_BYTES, 0, b""), (b"\x00" * ROW_BYTES, 0, b"")]
+    for target in range(WRAP - 4, WRAP):
+        for there in (b"\x30\x82\xff\xff", b"\x04\x81\xfe", b"\xff\xff\xff"):
+            cases.append((b"\x04\x81" + bytes([target - 3]), target, there))
+            cases.append((b"\x04\x82\x01" + bytes([target - 8]), target, there))
+    cases += [(head, 0, b"") for head in (
+        b"\x04\x82\xff\xff",
+        b"\x30\x80\x30\x80\xa0\x80",
+        b"\x30\x00" * (ROW_BYTES // 2),
+        b"\x30\x81\x05" * (ROW_BYTES // 3),
+        b"\xa0\x82\x01\x00" * (ROW_BYTES // 4),
+        b"\x30\xff" + b"\x30\x01" * 127)]
+    rows = []
+    for head, q, there in cases:
+        for _ in range(copies):
+            row = rng.integers(0, 256, ROW_BYTES, dtype=np.uint8)
+            row[:len(head)] = np.frombuffer(head, np.uint8)
+            row[q:q + len(there)] = np.frombuffer(there, np.uint8)
+            rows.append(np.frombuffer(row.tobytes(), ">u4").astype(np.uint32))
+    return np.stack(rows, 1)
+
+
 def to_tensor(words: np.ndarray, device) -> torch.Tensor:
     """uint32 words → an int32 tensor of the same bits on ``device``."""
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(
@@ -337,8 +418,11 @@ def plain_stage(stage: int, words: torch.Tensor) -> torch.Tensor:
 
 def footprint(stage: int, words: torch.Tensor):
     """What each lane of a stage must read, counted with the plain
-    version: ``(words, reads)`` int64[n], the distinct words it touches
-    and the byte reads it makes."""
+    version: ``(words, sectors, reads)``, int64[n] the distinct words it
+    touches, float64[n] its share of the distinct 32-byte sectors (the
+    distinct (word, lane // 8) pairs; a sector that j lanes touch counts
+    1/j to each, so the shares sum to the sectors) and int64[n] the byte
+    reads it makes."""
     ln = _Lanes(words, record=True)
     _PLAIN[stage](ln)
     idx = torch.stack(ln.words_read, 1)
@@ -346,7 +430,13 @@ def footprint(stage: int, words: torch.Tensor):
     idx = idx.sort(dim=1).values
     new = torch.ones_like(idx, dtype=torch.bool)
     new[:, 1:] = idx[:, 1:] != idx[:, :-1]
-    return (new & (idx >= 0)).sum(1), reads
+    new &= idx >= 0
+    lane = torch.arange(ln.n, device=idx.device)[:, None].expand_as(idx)[new]
+    _keys, inv, lanes_on = torch.unique((lane // 8) * WORDS + idx[new],
+                                        return_inverse=True, return_counts=True)
+    share = torch.zeros((ln.n,), dtype=torch.float64, device=idx.device)
+    share.index_add_(0, lane, 1.0 / lanes_on[inv].to(torch.float64))
+    return new.sum(1), share, reads
 
 
 # -- the kernels -----------------------------------------------------------

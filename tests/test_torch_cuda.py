@@ -408,6 +408,42 @@ def test_serial_stage_window_matches_plain(cuda, rows):
         np.testing.assert_array_equal(got.cpu().numpy(), expected)
 
 
+@pytest.mark.parametrize("stage", [4, 8])
+@pytest.mark.parametrize("lanes", [1, 127, 129, 1000, (1 << 16) + 5])
+def test_one_pass_and_tiled_stages_at_odd_widths(cuda, stage, lanes):
+    """Stage 4's one pass and stage 8's staged tiles at widths that are
+    not multiples of the 128-lane tile: equal to the plain version (and
+    stage 4 to its model)."""
+    words = mosaic_probe.random_words(lanes, lanes)
+    w = mosaic_probe.to_tensor(words, cuda)
+    got = mosaic_probe.run_stage(stage, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mosaic_probe.plain_stage(stage, w))
+    if stage == 4:
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      mosaic_probe.fori_masked_model(words))
+
+
+def test_one_pass_and_tiled_stages_on_crafted_rows(cuda):
+    """Stage 8 on its edge rows (every byte 0xFF or 0, walks that reach
+    offsets 248-251, constructed chains), whole and shifted by one lane
+    so that each case lands elsewhere in a tile; stage 4 on its edge
+    words."""
+    words = mosaic_probe.crafted_tlv_rows(3, copies=64)
+    for rows in (words, words[:, 1:]):
+        w = mosaic_probe.to_tensor(rows, cuda)
+        got = mosaic_probe.kernel_stage(8, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, mosaic_probe.plain_stage(8, w))
+    edges = mosaic_probe.crafted_masked_rows(1000)
+    w = mosaic_probe.to_tensor(edges, cuda)
+    got = mosaic_probe.kernel_stage(4, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mosaic_probe.plain_stage(4, w))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  mosaic_probe.fori_masked_model(edges))
+
+
 @pytest.mark.parametrize("lanes", [mosaic_probe.LANES, 1000])
 def test_probe_stages_match_plain(cuda, lanes):
     for stage in range(len(mosaic_probe.STAGES)):

@@ -11,6 +11,7 @@ equality.
 
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 
@@ -71,6 +72,105 @@ def test_serial_window_model_matches_plain_and_oracle(jprobe):
                                   tprobe.to_tensor(w, "cpu")).numpy()
         np.testing.assert_array_equal(got, want)
         assert past.any() and not past.all()
+
+
+@pytest.mark.parametrize("rows", ["random", "edges"])
+def test_fori_masked_model_matches_reference_and_plain(jprobe, rows):
+    """Stage 4's one-pass model (each low byte weighed by its residue's
+    trip count) equals the original's eight-trip reference and the plain
+    version, on the original's random rows and on the edge words."""
+    cases = ([jprobe._rows(seed) for seed in range(4)] if rows == "random"
+             else [tprobe.crafted_masked_rows()])
+    for w in cases:
+        want = jprobe.r_fori_masked(w)
+        np.testing.assert_array_equal(tprobe.fori_masked_model(w), want)
+        np.testing.assert_array_equal(
+            tprobe.plain_stage(4, tprobe.to_tensor(w, "cpu")).numpy(), want)
+    if rows == "edges":
+        assert tprobe.fori_masked_model(cases[0]).max() == 64 * 255 * 3
+
+
+def test_mod3_mulhi_is_exact_over_uint32():
+    edges = [0, 1, 2, 3, 4, 5, (1 << 24) - 1, 1 << 24, 0x7FFFFFFF,
+             0x80000000, 0xAAAAAAAA, 0xAAAAAAAB, 0xFFFFFFFD, 0xFFFFFFFE,
+             0xFFFFFFFF]
+    x = np.concatenate([np.array(edges, np.uint64), np.random.default_rng(
+        3).integers(0, 2**32, 1 << 16, dtype=np.uint64)]).astype(np.uint32)
+    np.testing.assert_array_equal(tprobe.mod3_mulhi(x), x % 3)
+
+
+def test_kernel_constants_match_the_models():
+    """The source's stage-4 trip count and row shape are the models'."""
+    with open(os.path.join(ROOT, "ct_mapreduce_tpu_torch", "csrc",
+                           "mosaic_probe.cu")) as f:
+        src = f.read()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kMaskedTrips"] == tprobe.MASKED_TRIPS
+    assert consts["kWords"] == tprobe.WORDS
+    assert consts["kThreads"] == tprobe.LANES  # stage 8's tile of lanes
+    assert consts["kWindowWords"] == tprobe.WINDOW_WORDS
+
+
+def _walk_offsets(words: np.ndarray) -> np.ndarray:
+    """The offsets each lane's stage-8 walk reads its headers at."""
+    w = words.astype(np.int64)
+    lanes = np.arange(w.shape[1])
+
+    def byte(q):
+        q = np.clip(q, 0, tprobe.ROW_BYTES - 1)
+        return (w[q >> 2, lanes] >> ((3 - (q & 3)) * 8)) & 0xFF
+
+    off, seen = np.zeros(w.shape[1], np.int64), []
+    for _ in range(12):
+        seen.append(off.copy())
+        l0, l1, l2, tag = byte(off + 1), byte(off + 2), byte(off + 3), byte(off)
+        nlen = np.where(l0 >= 0x80, l0 & 0x7F, 0)
+        content = np.where(l0 >= 0x80,
+                           np.where(nlen == 1, l1, l1 * 256 + l2), l0)
+        off = np.where(tag & 0x20, off + 2 + nlen,
+                       off + 2 + nlen + content) % tprobe.WRAP
+    return np.stack(seen, 1)
+
+
+def test_crafted_tlv_rows_match_reference_and_reach_the_row_end(jprobe):
+    """The stage-8 edge rows: the plain version equals the original's
+    reference on them, and their walks read headers at each offset
+    248-251 (a 4-byte read over the row's last words) and in long form
+    of 127 length octets."""
+    w = tprobe.crafted_tlv_rows(9)
+    assert w.shape == (tprobe.WORDS, jprobe.LANES)
+    np.testing.assert_array_equal(
+        tprobe.plain_stage(8, tprobe.to_tensor(w, "cpu")).numpy(),
+        jprobe.r_tlv_walk(w))
+    offs = _walk_offsets(w)
+    assert {248, 249, 250, 251} <= set(offs.ravel().tolist())
+    assert offs.max() < tprobe.WRAP
+    assert (w == 0xFFFFFFFF).all(0).any() and (w == 0).all(0).any()
+
+
+@pytest.mark.parametrize("stage", range(10))
+def test_footprint_sectors_match_brute_force(stage):
+    """The sectors of ``footprint`` are the distinct (word, lane // 8)
+    pairs of the words each lane reads, counted one by one on 64 lanes."""
+    words, _ = tprobe.stage_inputs(stage, 64, seed=stage)
+    ln = tprobe._Lanes(tprobe.to_tensor(words, "cpu"), record=True)
+    tprobe._PLAIN[stage](ln)
+    touched = [set() for _ in range(64)]
+    for read in ln.words_read:
+        for lane, k in enumerate(read.tolist()):
+            if k >= 0:
+                touched[lane].add(k)
+    sectors = {(k, lane // 8) for lane in range(64) for k in touched[lane]}
+    n_words, share, _reads = tprobe.footprint(
+        stage, tprobe.to_tensor(words, "cpu"))
+    assert n_words.tolist() == [len(t) for t in touched]
+    assert round(float(share.sum())) == len(sectors)
+    for g in range(8):
+        got = float(share[8 * g:8 * g + 8].sum())
+        assert round(got) == sum(1 for _k, h in sectors if h == g)
+    if stage in (0, 4, 5):
+        assert len(sectors) == 64 * tprobe.WORDS // 8
 
 
 def test_cli_on_cpu():

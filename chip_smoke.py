@@ -32,9 +32,12 @@ Phases, none of them caught — any failure exits non-zero:
    parser, stage 9 timed at 2^20 lanes), then every stage at 2^20 lanes
    against its plain version, timed beside its bound in 32-byte
    sectors (stage 9 also on random words and on crafted rows whose
-   headers or serial run past its window and the row; stages 4 and 8
-   also at widths off the 128-lane tile and on their edge rows, stage 4
-   also against its one-pass model);
+   headers or serial run past its window and the row; stages 2, 3, 4
+   and 8 also at widths off the 128-lane block and on their edge rows,
+   stages 2 and 3 also shifted by one lane, stage 3 also against its
+   window model and stage 4 against its one-pass model; stage 2 beside
+   its two floors, ``torch.gather`` of its scattered words and its time
+   with no scattered read, and the card's L2 fetch granularity);
 5. the walker main path, the default lane: ``IngestModel`` at
    ``batchSize`` 2^20 from ``tableBits`` 21, with an issuer
    CN filter that keeps 12 of 16 issuers and a 64-byte prefix of a
@@ -200,8 +203,8 @@ MUTANTS = 8192  # mutated rows beside the 2^20 stream rows in phase 3
 # crafted rows cut to these widths in views that start unaligned.
 ODD_WIDTHS = (193, 2047)
 FOOTPRINT_CHUNK = 1 << 16  # lanes per footprint count (memory)
-# Widths off stage 8's 128-lane tile, at which phase 4 also holds the
-# one-pass stage 4 and the tiled stage 8 to their plain versions.
+# Widths off the 128-lane block, at which phase 4 also holds stages 2, 3,
+# 4 and 8 to their plain versions.
 PROBE_ODD_WIDTHS = (1, 127, 129, 1000, (1 << 16) + 5)
 # A read byte costs a thread at least an address add, a load and the
 # shift/mask or compare that uses it: integer operations per byte read,
@@ -861,6 +864,7 @@ def probe_check(device, seed: int) -> dict:
     import torch
 
     from ct_mapreduce_tpu_torch.tools import mosaic_probe as mp
+    from ct_mapreduce_tpu_torch.tools.kernel_times import dyn_floors
 
     reset_counts()
     rc = mp.main(["--device", "cuda"])
@@ -883,20 +887,28 @@ def probe_check(device, seed: int) -> dict:
         if stage == mp.SERIAL_STAGE:  # the window's edges
             edges = [("crafted", mp.crafted_serial_rows(seed, 64)),
                      ("random", mp.random_words(seed, 1 << 16))]
-        if stage in (4, 8):  # one pass; tiles, widths off the tile
+        if stage in (2, 3, 4, 8):  # widths off the tile, edge rows
             edges = [(f"random {width}-lane", mp.random_words(seed + width,
                                                                width))
                      for width in PROBE_ODD_WIDTHS]
-            edges.append(("crafted", mp.crafted_masked_rows(1000)
-                          if stage == 4 else mp.crafted_tlv_rows(seed, 64)))
+            crafted = (mp.crafted_masked_rows(1000) if stage == 4 else
+                       {2: mp.crafted_dyn_rows, 3: mp.crafted_fori_rows,
+                        8: mp.crafted_tlv_rows}[stage](seed, 64))
+            edges.append(("crafted", crafted))
+            if stage in (2, 3):  # each case elsewhere in a block
+                edges.append(("crafted, shifted by one lane", crafted[:, 1:]))
+        model = {3: lambda r: mp.fori_window_model(r)[0],
+                 4: mp.fori_masked_model}.get(stage)
+        if model is not None:
+            check(np.array_equal(got.cpu().numpy(), model(words)),
+                  f"probe stage {name} != its model at {n} lanes")
         for what, rows in edges:
             r = mp.to_tensor(rows, device)
             got_e = mp.kernel_stage(stage, r)
             check(torch.equal(got_e, mp.plain_stage(stage, r)),
                   f"probe stage {name} != plain on {what} rows")
-            if stage == 4:
-                check(np.array_equal(got_e.cpu().numpy(),
-                                     mp.fori_masked_model(rows)),
+            if model is not None:
+                check(np.array_equal(got_e.cpu().numpy(), model(rows)),
                       f"probe stage {name} != its model on {what} rows")
         k_ms = mp.time_stage(stage, w, TIMED_REPS, KERNEL_CALLS_PER_TIMING)
         p_ms = cuda_times(lambda: mp.plain_stage(stage, w), PLAIN_REPS, warmup=1)
@@ -934,6 +946,14 @@ def probe_check(device, seed: int) -> dict:
               "edge_rows": [what for what, _rows in edges],
               "ladder_launches": ladder["probe"][stage]}
         st["share_of_bound"] = st["bound_ms"] / st["kernel_ms"]
+        floors = ""
+        if stage == 2:  # how near the card's floor for a scattered read
+            st.update(dyn_floors(mp, words, w, seed))
+            check(st.pop("equal"), "a stage-2 floor != what it stands in for")
+            st["l2_fetch_granularity"] = mp.l2_fetch_granularity(device)
+            floors = (f"; floors: torch.gather {st['scatter_floor_ms']:.4f} "
+                      f"ms, no scattered read {st['no_scatter_ms']:.4f} ms; "
+                      f"L2 fetch granularity {st['l2_fetch_granularity']} B")
         stages.append(st)
         print(f"phase 4: probe {name} == plain at {n} lanes"
               + (f" and on {len(edges)} edge sets" if edges else "")
@@ -942,7 +962,8 @@ def probe_check(device, seed: int) -> dict:
               f"({st['bound_by']}; {words_read / n:.2f} words, "
               f"{sectors / n:.2f} sectors a lane; ops "
               f"{op_ms:.4f} ms), {st['share_of_bound']:.1%} of bound"
-              + (f", torch.sum {lib_ms:.4f} ms" if lib_ms else ""), flush=True)
+              + (f", torch.sum {lib_ms:.4f} ms" if lib_ms else "") + floors,
+              flush=True)
     return {"ladder_launches": ladder, "stages": stages}
 
 

@@ -17,9 +17,10 @@
 // lane's reads touch (a data-dependent read of word k costs a sector
 // that only its 7 neighbouring lanes can share). Stages 0, 4 and 5 read
 // every word of a lane (256 B) once, coalesced across the warp; stages
-// 1-3, 6 and 7 read one word per byte read from global memory. Stage 8
+// 1, 2, 6 and 7 read one word per byte read from global memory. Stage 8
 // stages whole rows in shared memory and walks them there (see
-// k_tlv_walk), stage 9 a window of each row (see k_serial_extract).
+// k_tlv_walk), stages 3 and 9 a window of each row (see k_fori_reads,
+// k_serial_extract).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,22 +104,82 @@ PROBE_KERNEL(k_onehot_read) {
   out[lane] = src(17);
 }
 
-// Stage 2: one byte read at a data-dependent offset.
+// A 4-byte load of read-only data that allocates no line in L1
+// (ld.global.nc.L1::no_allocate): for words that no other read of the
+// thread's block takes again.
+__device__ __forceinline__ uint32_t ldg_no_allocate(const uint32_t* p) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// Stage 2: one byte read at a data-dependent offset, q = (byte 0) % 252.
+//
+// Two dependent loads a lane: word 0 (coalesced), then word q / 4, a
+// scattered sector that only the lane's 7 neighbours could share. The
+// L2 fetches 64 B from device memory at a time (the card's
+// cudaLimitMaxL2FetchGranularity), so each scattered read moves about
+// twice its sector, and the stage's time less that of its coalesced
+// part is about what 64 B a lane take at the streaming rate of stage 0:
+// the stage is near the card's floor for a scattered read. What is left
+// to save, 11% together on an H100: the scattered read allocates no L1
+// line (no other lane reads it), and a lane whose q falls in word 0
+// (byte 0 of 0-3 or 252-255) takes its byte from the word it holds and
+// makes no second load. Two or four lanes a thread, every scattered read
+// of a thread in flight at once, were 4-9% slower. q lies in 0..251, in
+// the row, so no read is clipped.
 PROBE_KERNEL(k_onehot_dyn) {
   const long long lane = lane_id();
   if (lane >= lanes) return;
-  const LaneWords src{w + lane, lanes, kRowBytes};
-  out[lane] = src(static_cast<int>(__ldg(w + lane) >> 24) % kWrap);
+  const uint32_t w0 = __ldg(w + lane);
+  const int q = static_cast<int>(w0 >> 24) % kWrap;
+  const uint32_t word = q < 4 ? w0 : ldg_no_allocate(w + (q >> 2) * lanes + lane);
+  out[lane] = static_cast<int>((word >> ((3 - (q & 3)) * 8)) & 0xFFu);
 }
 
-// Stage 3: 16 reads in a loop with a carried offset.
+// Stage 3: 16 reads in a loop with a carried offset,
+// off = (off + 1 + (byte & 3)) % 252.
+//
+// Each offset waits on the last byte, so reading from global memory (the
+// stage's first design) made a chain of 16 dependent loads a lane. But
+// the walk's reach is bounded: it starts at 0 and a step moves 1 to 4
+// bytes, so read i (0..15) lies at offset <= 4i <= 60, in words 0..15,
+// and the modulo never wraps. The last read lies at the sum of 15 steps;
+// on random rows, each step is uniform in 1..4 and reaches word 12 or
+// past with probability 0.97% (word 11: 8.3%, word 13: 0.04%;
+// mosaic_probe.fori_reach_share). So a lane loads its first
+// kForiWindowWords words at once, independent coalesced loads, stages
+// them in a shared-memory column (word k at col[k * kThreads]: a warp's
+// lanes are 32 banks apart whatever word each reads, no conflicts) and
+// walks there, a read one shared load, a shift and a mask. A read past
+// the window goes to the row in global memory (LaneWords), so any row
+// gives the plain version's result. Each thread writes and reads only its
+// own column, so no barrier is needed; lanes past the last are neither
+// loaded nor stored. On an H100, 12 words were 21% faster than 16 (which
+// no walk leaves), loads that allocate no L1 line 5% faster than __ldg,
+// and copies with cp.async or two lanes a thread slower.
+constexpr int kForiReads = 16;
+constexpr int kForiWindowWords = 12;
+
 PROBE_KERNEL(k_fori_reads) {
+  __shared__ uint32_t window[kForiWindowWords * kThreads];
   const long long lane = lane_id();
   if (lane >= lanes) return;
+  uint32_t* col = window + threadIdx.x;
+  uint32_t v[kForiWindowWords];
+#pragma unroll
+  for (int k = 0; k < kForiWindowWords; ++k) v[k] = ldg_no_allocate(w + k * lanes + lane);
+#pragma unroll
+  for (int k = 0; k < kForiWindowWords; ++k) col[k * kThreads] = v[k];
   const LaneWords src{w + lane, lanes, kRowBytes};
   int off = 0, acc = 0;
-  for (int i = 0; i < 16; ++i) {
-    const int byte = src(off);
+#pragma unroll
+  for (int i = 0; i < kForiReads; ++i) {
+    const int k = off >> 2;
+    const int byte =
+        k < kForiWindowWords
+            ? static_cast<int>((col[k * kThreads] >> ((3 - (off & 3)) * 8)) & 0xFFu)
+            : src(off);
     off = (off + 1 + (byte & 3)) % kWrap;
     acc += byte;
   }
@@ -406,4 +467,17 @@ extern "C" int ctmr_probe_stage(int stage, const void* words, long long lanes,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), lanes, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The device's cudaLimitMaxL2FetchGranularity in bytes (the L2's fetch
+// size from device memory), for the record beside stage 2's scattered
+// reads; read only: the limit is the whole process's. Returns the
+// cudaError_t of the query.
+extern "C" int ctmr_probe_l2_fetch_granularity(int device, long long* bytes) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  size_t v = 0;
+  err = cudaDeviceGetLimit(&v, cudaLimitMaxL2FetchGranularity);
+  *bytes = static_cast<long long>(v);
+  return static_cast<int>(err);
 }

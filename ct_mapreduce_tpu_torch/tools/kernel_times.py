@@ -1,5 +1,5 @@
 """The yardstick of the port's short kernels, K5's timed shapes, and K5
-and probe stage 9 timed by them in any revision of the port.
+and the probe stages timed by them in any revision of the port.
 
 :func:`cuda_ms` times launches with CUDA events queued behind a spin of
 the card, so that a short kernel's time is the card's and not its
@@ -12,9 +12,10 @@ streamed build (2^24 keys in 1,024 groups, the whole round's arena, the
 dispatch's lanes over the groups it reaches).
 
 Run as a script, it holds K5 at those shapes, probe stage 9 at 2^20
-certificate rows and probe stages 4 and 8 at 2^20 random rows to their
-plain versions, bit for bit, then times them with :func:`cuda_ms`, for
-the package under ``--tree`` (default: the checkout this file is in).
+certificate rows and probe stages 1, 2, 3, 4, 7 and 8 at 2^20 random
+rows to their plain versions, bit for bit, then times them with
+:func:`cuda_ms`, for the package under ``--tree`` (default: the checkout
+this file is in), and stage 2's two floors (:func:`dyn_floors`).
 An older revision of the port unpacked into a directory (it needs
 ``ops/bloom_cuda.scatter`` and the probe ladder's
 ``tools/mosaic_probe.py``, as since K5 was first ported) is so timed by
@@ -52,6 +53,7 @@ GROUPS = 1024  # groups of the fused shape
 FP_RATE = 0.01  # the filter build's default target
 SCALE_KEYS = 1 << 24  # filter-scale's corpus, whose first dispatch is timed
 REPS, CALLS = 25, 20  # CUDA-event timings a turn, launches a timing
+DYN_WRAP = 252  # probe offsets wrap modulo the row's 256 bytes less 4
 
 
 def cuda_ms(fn, reps: int = REPS, calls: int = CALLS,
@@ -133,6 +135,44 @@ def args_of(shape: dict) -> tuple:
     return tuple(shape[x] for x in ("keys", "gid", "offs", "ms", "ks"))
 
 
+def dyn_word_index(words: np.ndarray) -> np.ndarray:
+    """int64[1, n]: the word probe stage 2's second read takes in each
+    lane of uint32[64, n] words, ((byte 0) % 252) // 4."""
+    return ((words[0] >> 24).astype(np.int64) % DYN_WRAP >> 2)[None, :]
+
+
+def no_scatter_words(words: np.ndarray, seed: int) -> np.ndarray:
+    """``words`` with each lane's byte 0 drawn from 0-3 and 252-255, so
+    that probe stage 2's second read falls in word 0, the word its first
+    read holds."""
+    rng = np.random.default_rng(seed)
+    top = rng.choice(np.array([0, 1, 2, 3, 252, 253, 254, 255], np.uint32),
+                     words.shape[1])
+    out = words.copy()
+    out[0] = (out[0] & np.uint32(0x00FFFFFF)) | (top << np.uint32(24))
+    return out
+
+
+def dyn_floors(mp, words: np.ndarray, w: torch.Tensor, seed: int) -> dict:
+    """Probe stage 2's two floors at ``words`` (uint32[64, n], ``w`` the
+    same on the card), each held to what it stands in for, then timed
+    with :func:`cuda_ms`: (a) ``torch.gather`` of the words its scattered
+    read takes, a yardstick of the card's own library that reads the
+    same scattered words plus 8 B of index a lane; (b) the stage's kernel
+    on rows whose second read falls in word 0, its time without any
+    scattered read."""
+    idx = torch.from_numpy(dyn_word_index(words)).to(w.device)
+    lanes = torch.arange(w.shape[1], device=w.device)
+    same = torch.equal(torch.gather(w, 0, idx)[0], w[idx[0], lanes])
+    gather = cuda_ms(lambda: torch.gather(w, 0, idx))
+    ns = mp.to_tensor(no_scatter_words(words, seed), w.device)
+    same &= torch.equal(mp.kernel_stage(2, ns), mp.plain_stage(2, ns))
+    no_scatter = cuda_ms(lambda: mp.kernel_stage(2, ns))
+    return {"scatter_floor_ms": float(np.median(gather)),
+            "no_scatter_ms": float(np.median(no_scatter)),
+            "equal": bool(same)}
+
+
 def _summary(times: list[float]) -> dict:
     return {"ms": float(np.median(times)), "ms_min": min(times),
             "ms_max": max(times)}
@@ -196,9 +236,9 @@ def main(argv=None) -> int:
     print(f"stage 9: {'==' if same else '!='} plain, "
           f"{doc['stage9']['ms']:.4f} ms", flush=True)
     del w
-    w = mp.to_tensor(mp.random_words(args.seed, mp.TIMED_TILES * mp.LANES),
-                     dev)
-    for stage in (4, 8):
+    words = mp.random_words(args.seed, mp.TIMED_TILES * mp.LANES)
+    w = mp.to_tensor(words, dev)
+    for stage in (1, 2, 3, 4, 7, 8):
         same = torch.equal(mp.kernel_stage(stage, w),
                            mp.plain_stage(stage, w))
         ok &= same
@@ -207,6 +247,10 @@ def main(argv=None) -> int:
             lanes=int(w.shape[1]))
         print(f"stage {stage}: {'==' if same else '!='} plain, "
               f"{doc[f'stage{stage}']['ms']:.4f} ms", flush=True)
+    doc["stage2_floors"] = floors = dyn_floors(mp, words, w, args.seed)
+    ok &= floors["equal"]
+    print(f"stage 2 floors: torch.gather {floors['scatter_floor_ms']:.4f} ms,"
+          f" no scattered read {floors['no_scatter_ms']:.4f} ms", flush=True)
     doc["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

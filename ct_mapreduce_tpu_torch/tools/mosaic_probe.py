@@ -54,10 +54,23 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ctmr_probe_stage.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                      ctypes.c_longlong, ctypes.c_void_p,
                                      ctypes.c_int, ctypes.c_void_p]
+    lib.ctmr_probe_l2_fetch_granularity.restype = ctypes.c_int
+    lib.ctmr_probe_l2_fetch_granularity.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
 
 
 LIB = cuda_build.Library("mosaic_probe.cu", ("der_walk.cuh",), _bind)
 build = LIB.build
+
+
+def l2_fetch_granularity(device) -> int:
+    """Bytes the card's L2 fetches from device memory at a time
+    (``cudaLimitMaxL2FetchGranularity``), read, never set."""
+    dev = torch.device(device)
+    got = ctypes.c_longlong(0)
+    cuda_build.raise_on(LIB.get().ctmr_probe_l2_fetch_granularity(
+        dev.index or 0, ctypes.byref(got)), "the L2 fetch-size query")
+    return int(got.value)
 
 
 # -- inputs --------------------------------------------------------------
@@ -192,6 +205,89 @@ def serial_window_model(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     ok = tag_s == 0x02
     out = np.where(ok, total + c_s * 1000, 0).astype(np.int32)
     return out[None, :], past
+
+
+#: Stage 3's reads (the original's ``fori_loop(0, 16, ...)``) and window
+#: (``csrc/mosaic_probe.cu`` kForiWindowWords): the words of a row each
+#: lane loads at once; a read past them goes to the row.
+FORI_READS = 16
+FORI_WINDOW_WORDS = 12
+
+
+def fori_window_model(words: np.ndarray, window: int = FORI_WINDOW_WORDS
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """NumPy model of stage 3's kernel over uint32[WORDS, n] words: the
+    16 chained byte reads, each from the lane's first ``window`` words
+    (its window) or, past them, from the row. Returns (int32[1, n],
+    bool[n] lanes that read at or past word ``window``)."""
+    w = np.asarray(words, np.uint32).astype(np.int64)
+    n = w.shape[1]
+    lanes = np.arange(n)
+    win = w[:window]
+    off = np.zeros((n,), np.int64)
+    acc = np.zeros((n,), np.int64)
+    past = np.zeros((n,), bool)
+    for _ in range(FORI_READS):
+        k = off >> 2
+        outside = k >= window
+        past |= outside
+        word = np.where(outside, w[k, lanes],
+                        win[np.minimum(k, window - 1), lanes])
+        byte = (word >> ((3 - (off & 3)) * 8)) & 0xFF
+        off = (off + 1 + (byte & 3)) % WRAP
+        acc += byte
+    return acc.astype(np.int32)[None, :], past
+
+
+def fori_reach_share(window: int) -> float:
+    """The share of random rows whose stage-3 walk reads at or past word
+    ``window``: the last of the 16 reads lies at the sum of 15 steps,
+    each 1 + (a fresh random byte & 3), so uniform in 1..4."""
+    p = np.array([1.0])
+    for _ in range(FORI_READS - 1):
+        p = np.convolve(p, [0.0, 0.25, 0.25, 0.25, 0.25])
+    return float(p[4 * window:].sum())
+
+
+def crafted_fori_rows(seed: int = 0, copies: int = 4) -> np.ndarray:
+    """uint32[WORDS, n] rows for stage 3's edges: every byte 0xFF (steps
+    of 4, the last read in word 15) or 0 (steps of 1, words 0-3), and a
+    walk whose last read lands at each offset 15..60 (every word 3..15,
+    each side of the window's end among them), its steps shuffled. Each
+    case ``copies`` times, the bits a walk does not use random (from
+    ``seed``)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+
+    def add(row):
+        rows.append(np.frombuffer(row.tobytes(), ">u4").astype(np.uint32))
+
+    for _ in range(copies):
+        add(np.full(ROW_BYTES, 0xFF, np.uint8))
+        add(np.zeros(ROW_BYTES, np.uint8))
+    for last in range(FORI_READS - 1, 4 * (FORI_READS - 1) + 1):
+        extra = last - (FORI_READS - 1)  # spread over 15 steps, 0-3 each
+        base = np.array([min(3, max(0, extra - 3 * i))
+                         for i in range(FORI_READS - 1)])
+        for _ in range(copies):
+            steps = 1 + rng.permutation(base)
+            row = rng.integers(0, 256, ROW_BYTES, dtype=np.uint8)
+            at = np.concatenate(([0], np.cumsum(steps)))
+            row[at[:-1]] = (row[at[:-1]] & 0xFC) | (steps - 1)
+            add(row)
+    return np.stack(rows, 1)
+
+
+def crafted_dyn_rows(seed: int = 0, copies: int = 1) -> np.ndarray:
+    """uint32[WORDS, 256 * copies] rows for stage 2's edges: byte 0
+    taking each of the 256 values, so the second read covers every word
+    (248-251 in word 62) and the wrap of 252-255 to 0-3, which falls in
+    word 0; the other bytes random (from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2**32, (WORDS, 256 * copies), dtype=np.uint32)
+    top = np.tile(np.arange(256, dtype=np.uint32), copies)
+    w[0] = (w[0] & 0x00FFFFFF) | (top << 24)
+    return w
 
 
 #: Stage 4's loop trips (the original's ``fori_loop(0, 8, ...)``).

@@ -444,6 +444,40 @@ def test_one_pass_and_tiled_stages_on_crafted_rows(cuda):
                                   mosaic_probe.fori_masked_model(edges))
 
 
+@pytest.mark.parametrize("stage", [2, 3])
+@pytest.mark.parametrize("lanes", [1, 127, 129, 1000, (1 << 16) + 5])
+def test_dyn_and_window_stages_at_odd_widths(cuda, stage, lanes):
+    """Stage 2's scattered read and stage 3's staged window at widths
+    that are not multiples of the 128-lane block: equal to the plain
+    version (and stage 3 to its window model)."""
+    words = mosaic_probe.random_words(lanes + stage, lanes)
+    w = mosaic_probe.to_tensor(words, cuda)
+    got = mosaic_probe.run_stage(stage, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mosaic_probe.plain_stage(stage, w))
+    if stage == 3:
+        model, _past = mosaic_probe.fori_window_model(words)
+        np.testing.assert_array_equal(got.cpu().numpy(), model)
+
+
+def test_dyn_and_window_stages_on_crafted_rows(cuda):
+    """Stage 2 with byte 0 at each of its 256 values (every word, the
+    wrap into word 0) and stage 3 on walks whose last read lands at each
+    offset 15..60 and on rows of 0xFF and 0 bytes, whole and shifted by
+    one lane so that each case lands elsewhere in a block."""
+    for stage, words in ((2, mosaic_probe.crafted_dyn_rows(3, 64)),
+                         (3, mosaic_probe.crafted_fori_rows(3, 64))):
+        for rows in (words, words[:, 1:]):
+            w = mosaic_probe.to_tensor(rows, cuda)
+            got = mosaic_probe.kernel_stage(stage, w)
+            torch.cuda.synchronize()
+            assert torch.equal(got, mosaic_probe.plain_stage(stage, w))
+            if stage == 3:
+                model, past = mosaic_probe.fori_window_model(rows)
+                np.testing.assert_array_equal(got.cpu().numpy(), model)
+                assert past.any() and not past.all()
+
+
 @pytest.mark.parametrize("lanes", [mosaic_probe.LANES, 1000])
 def test_probe_stages_match_plain(cuda, lanes):
     for stage in range(len(mosaic_probe.STAGES)):

@@ -18,6 +18,7 @@ import sys
 import numpy as np
 import pytest
 
+from ct_mapreduce_tpu_torch.tools import kernel_times
 from ct_mapreduce_tpu_torch.tools import mosaic_probe as tprobe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -110,6 +111,102 @@ def test_kernel_constants_match_the_models():
     assert consts["kWords"] == tprobe.WORDS
     assert consts["kThreads"] == tprobe.LANES  # stage 8's tile of lanes
     assert consts["kWindowWords"] == tprobe.WINDOW_WORDS
+    assert consts["kForiWindowWords"] == tprobe.FORI_WINDOW_WORDS
+    assert consts["kForiReads"] == tprobe.FORI_READS
+
+
+def _tiles(w: np.ndarray) -> list[np.ndarray]:
+    """``w`` repeated to whole 128-lane tiles (the references' width),
+    cut into them."""
+    n = -(-w.shape[1] // tprobe.LANES) * tprobe.LANES
+    w = np.tile(w, (1, -(-n // w.shape[1])))[:, :n]
+    return [w[:, i:i + tprobe.LANES] for i in range(0, n, tprobe.LANES)]
+
+
+def _fori_last_offsets(words: np.ndarray) -> np.ndarray:
+    """The offset of each lane's last (16th) stage-3 read."""
+    w = words.astype(np.int64)
+    lanes = np.arange(w.shape[1])
+    off = np.zeros(w.shape[1], np.int64)
+    for _ in range(tprobe.FORI_READS - 1):
+        byte = (w[off >> 2, lanes] >> ((3 - (off & 3)) * 8)) & 0xFF
+        off = (off + 1 + (byte & 3)) % tprobe.WRAP
+    return off
+
+
+@pytest.mark.parametrize("rows", ["random", "crafted"])
+def test_fori_window_model_matches_reference_and_plain(jprobe, rows):
+    """Stage 3's window model (the first FORI_WINDOW_WORDS words, reads
+    past them from the row) equals the original's reference and the plain
+    version on the original's random rows and on the edge rows: every
+    byte 0xFF or 0, walks whose last read lands at each offset 15..60."""
+    cases = ([jprobe._rows(seed) for seed in range(4)] if rows == "random"
+             else _tiles(tprobe.crafted_fori_rows(3)))
+    for w in cases:
+        want = jprobe.r_fori_reads(w)
+        got, _past = tprobe.fori_window_model(w)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            tprobe.plain_stage(3, tprobe.to_tensor(w, "cpu")).numpy(), want)
+        # No walk reads past word 15, so a window of 16 words holds all.
+        assert not tprobe.fori_window_model(w, 16)[1].any()
+
+
+def test_fori_window_reach_on_random_and_crafted_rows(jprobe):
+    """The share of random rows whose walk leaves the window is the exact
+    share of 15 steps uniform in 1..4 summing to 4 * FORI_WINDOW_WORDS or
+    more (0.97% at 12 words; none past word 15); the edge rows put the
+    last read on each side of the window's end."""
+    win = tprobe.FORI_WINDOW_WORDS
+    assert tprobe.fori_reach_share(16) == 0.0
+    assert 0 < tprobe.fori_reach_share(15) < 1e-9
+    assert abs(tprobe.fori_reach_share(12) - 0.0097190) < 1e-7
+    assert abs(tprobe.fori_reach_share(11) - 0.0833562) < 1e-7
+    n = 1 << 16
+    _out, past = tprobe.fori_window_model(tprobe.random_words(11, n))
+    p = tprobe.fori_reach_share(win)
+    assert abs(past.mean() - p) < 5 * (p * (1 - p) / n) ** 0.5
+    for seed in range(4):
+        assert _fori_last_offsets(jprobe._rows(seed)).max() <= 60
+    crafted = tprobe.crafted_fori_rows(5)
+    last = _fori_last_offsets(crafted)
+    _out, past = tprobe.fori_window_model(crafted)
+    np.testing.assert_array_equal(past, last >= 4 * win)
+    assert set(last.tolist()) == set(range(15, 61))
+    assert {win - 1, win, 15} <= set((last >> 2).tolist())
+    assert (crafted == 0xFFFFFFFF).all(0).any() and (crafted == 0).all(0).any()
+
+
+def test_crafted_dyn_rows_match_reference(jprobe):
+    """Stage 2's edge rows: byte 0 takes each of the 256 values, so the
+    second read reaches every word 0..62 (offsets 248-251 in word 62) and
+    wraps 252-255 to word 0; the plain version equals the original's
+    reference on them."""
+    w = tprobe.crafted_dyn_rows(2)
+    assert sorted((w[0] >> 24).tolist()) == list(range(256))
+    for tile in _tiles(w):
+        np.testing.assert_array_equal(
+            tprobe.plain_stage(2, tprobe.to_tensor(tile, "cpu")).numpy(),
+            jprobe.r_onehot_dyn(tile))
+    q = (w[0] >> 24).astype(np.int64) % tprobe.WRAP
+    assert set((q >> 2).tolist()) == set(range(63))
+    assert set((w[0] >> 24)[q < 4].tolist()) == {0, 1, 2, 3, 252, 253, 254, 255}
+
+
+def test_stage2_floor_inputs_stand_for_the_stage():
+    """The inputs of stage 2's floors (``kernel_times``): the word index a
+    lane is the word the plain version's second read takes, and on the
+    no-scatter rows that word is word 0, the other bytes unchanged."""
+    words = tprobe.random_words(8, 4096)
+    ln = tprobe._Lanes(tprobe.to_tensor(words, "cpu"), record=True)
+    tprobe._PLAIN[2](ln)
+    np.testing.assert_array_equal(kernel_times.dyn_word_index(words)[0],
+                                  ln.words_read[1].numpy())
+    ns = kernel_times.no_scatter_words(words, 8)
+    assert (kernel_times.dyn_word_index(ns) == 0).all()
+    np.testing.assert_array_equal(ns[1:], words[1:])
+    np.testing.assert_array_equal(ns[0] & 0xFFFFFF, words[0] & 0xFFFFFF)
+    assert len(set((ns[0] >> 24).tolist())) == 8
 
 
 def _walk_offsets(words: np.ndarray) -> np.ndarray:

@@ -32,12 +32,16 @@ Phases, none of them caught — any failure exits non-zero:
    parser, stage 9 timed at 2^20 lanes), then every stage at 2^20 lanes
    against its plain version, timed beside its bound in 32-byte
    sectors (stage 9 also on random words and on crafted rows whose
-   headers or serial run past its window and the row; stages 2, 3, 4
-   and 8 also at widths off the 128-lane block and on their edge rows,
-   stages 2 and 3 also shifted by one lane, stage 3 also against its
-   window model and stage 4 against its one-pass model; stage 2 beside
-   its two floors, ``torch.gather`` of its scattered words and its time
-   with no scattered read, and the card's L2 fetch granularity);
+   headers or serial run past its window and the row; stages 1, 2, 3,
+   4, 7 and 8 also at widths off the 128-lane block, stages 2, 3, 4, 7
+   and 8 on their edge rows, stages 2, 3 and 7 also shifted by one lane,
+   stages 1 and 7 also in views 4, 8 and 12 B past 16-byte alignment,
+   stage 3 also against its window model and stage 4 against its
+   one-pass model; stage 2 beside its two floors, ``torch.gather`` of
+   its scattered words and its time with no scattered read, and the
+   card's L2 fetch granularity; stages 1 and 7 beside an empty launch
+   at one lane a thread, at theirs and of one block and ``out.copy_(w[4])``,
+   stage 1 beside its library call);
 5. the walker main path, the default lane: ``IngestModel`` at
    ``batchSize`` 2^20 from ``tableBits`` 21, with an issuer
    CN filter that keeps 12 of 16 issuers and a 64-byte prefix of a
@@ -203,9 +207,10 @@ MUTANTS = 8192  # mutated rows beside the 2^20 stream rows in phase 3
 # crafted rows cut to these widths in views that start unaligned.
 ODD_WIDTHS = (193, 2047)
 FOOTPRINT_CHUNK = 1 << 16  # lanes per footprint count (memory)
-# Widths off the 128-lane block, at which phase 4 also holds stages 2, 3,
-# 4 and 8 to their plain versions.
-PROBE_ODD_WIDTHS = (1, 127, 129, 1000, (1 << 16) + 5)
+# Widths off the 128-lane block, at which phase 4 also holds stages 1, 2,
+# 3, 4, 7 and 8 to their plain versions (tails of 1, 2 and 3 lanes past a
+# multiple of 4 for stages 1 and 7).
+PROBE_ODD_WIDTHS = (1, 127, 129, 130, 1000, (1 << 16) + 5)
 # A read byte costs a thread at least an address add, a load and the
 # shift/mask or compare that uses it: integer operations per byte read,
 # for the operations half of a walker or probe bound.
@@ -305,9 +310,19 @@ def sass_report(out_dir: str) -> dict:
         for kind, text in (("ptxas", ptxas), ("sass", sass)):
             with open(os.path.join(out_dir, f"{name}_{kind}.txt"), "w") as f:
                 f.write(text)
-        ops = collections.Counter(m.group(1).split(".")[0] for m in re.finditer(
+        opcode = re.compile(
             r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
-            sass, re.M))
+            re.M)
+        ops = collections.Counter(m.group(1).split(".")[0]
+                                  for m in opcode.finditer(sass))
+        if name == "probe":  # stages 1 and 7: the global loads and stores
+            word = {}
+            for body in re.split(r"\n\s*Function : ", sass)[1:]:
+                fname = body.split("\n", 1)[0].strip()
+                if "k_word_stage" in fname:
+                    word[fname] = dict(collections.Counter(
+                        m.group(1) for m in opcode.finditer(body)
+                        if m.group(1).startswith(("LDG", "STG"))))
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
         kernels = {}
         for m in re.finditer(
@@ -330,6 +345,8 @@ def sass_report(out_dir: str) -> dict:
                         "memory_ops": mem,
                         "instructions": sum(ops.values()),
                         "by_opcode": dict(ops.most_common())}
+        if name == "probe":
+            report[name]["word_stage_memory"] = word
         print(f"sass {name}: at most {report[name]['registers_max']} "
               f"registers, {sum(spills)} B spill stores, {sum(spill_loads)} "
               f"B spill loads, {report[name]['instructions']} instructions; "
@@ -341,12 +358,23 @@ def sass_report(out_dir: str) -> dict:
     for name, pick in (("k5", lambda kname: True),
                        ("probe", lambda kname: any(k in kname for k in (
                            "k_serial_extract", "k_fori_masked",
-                           "k_tlv_walk")))):
+                           "k_tlv_walk", "k_word_stage")))):
         for kname, k in report[name]["kernels"].items():
             if pick(kname):
                 print(f"sass {name} kernel ...{kname[-60:]}: {k}", flush=True)
                 check(k["spill_store_bytes"] == 0 and k["spill_load_bytes"] == 0,
                       f"a {name} kernel spills: {kname} {k}")
+    # Stage 7 decodes its header from one load of word 0: each of its two
+    # kernels (16-byte path or not; "Lb1E" mangles kAligned true) makes as
+    # many global loads as stage 1's, which reads one byte.
+    word = report["probe"]["word_stage_memory"]
+    loads = {("TlvStep" in f, "Lb1E" in f): sum(
+        v for op, v in c.items() if op.startswith("LDG"))
+        for f, c in word.items()}
+    print(f"sass probe stages 1 and 7: {word}", flush=True)
+    check(len(loads) == 4 and all(loads[True, a] == loads[False, a]
+                                  for a in (True, False)),
+          f"stage 7 makes other global loads than stage 1: {word}")
     k6 = kernel_libs()["k6"]
     report["k6"]["product"] = k6_product_sass(k6.path, out_dir, k6.flags)
     k3 = report["k3"]
@@ -864,7 +892,8 @@ def probe_check(device, seed: int) -> dict:
     import torch
 
     from ct_mapreduce_tpu_torch.tools import mosaic_probe as mp
-    from ct_mapreduce_tpu_torch.tools.kernel_times import dyn_floors
+    from ct_mapreduce_tpu_torch.tools.kernel_times import (
+        dyn_floors, word_floors)
 
     reset_counts()
     rc = mp.main(["--device", "cuda"])
@@ -887,15 +916,21 @@ def probe_check(device, seed: int) -> dict:
         if stage == mp.SERIAL_STAGE:  # the window's edges
             edges = [("crafted", mp.crafted_serial_rows(seed, 64)),
                      ("random", mp.random_words(seed, 1 << 16))]
-        if stage in (2, 3, 4, 8):  # widths off the tile, edge rows
+        if stage in (1, 2, 3, 4, 7, 8):  # widths off the tile, edge rows
             edges = [(f"random {width}-lane", mp.random_words(seed + width,
                                                                width))
                      for width in PROBE_ODD_WIDTHS]
+        if stage in (1, 7):  # the 4-byte path: views off 16-byte alignment
+            edges += [(f"random, {4 * off} B past 16-byte alignment",
+                       mp.offset_tensor(mp.random_words(seed + off, 1 << 16),
+                                        device, off)) for off in (1, 2, 3)]
+        if stage in (2, 3, 4, 7, 8):
             crafted = (mp.crafted_masked_rows(1000) if stage == 4 else
                        {2: mp.crafted_dyn_rows, 3: mp.crafted_fori_rows,
+                        7: mp.crafted_step_rows,
                         8: mp.crafted_tlv_rows}[stage](seed, 64))
             edges.append(("crafted", crafted))
-            if stage in (2, 3):  # each case elsewhere in a block
+            if stage in (2, 3, 7):  # each case elsewhere in a block
                 edges.append(("crafted, shifted by one lane", crafted[:, 1:]))
         model = {3: lambda r: mp.fori_window_model(r)[0],
                  4: mp.fori_masked_model}.get(stage)
@@ -903,7 +938,9 @@ def probe_check(device, seed: int) -> dict:
             check(np.array_equal(got.cpu().numpy(), model(words)),
                   f"probe stage {name} != its model at {n} lanes")
         for what, rows in edges:
-            r = mp.to_tensor(rows, device)
+            r = rows if torch.is_tensor(rows) else mp.to_tensor(rows, device)
+            check(r.is_contiguous() and (r.data_ptr() % 16 != 0) == (
+                "alignment" in what), f"the {what} rows are laid out wrong")
             got_e = mp.kernel_stage(stage, r)
             check(torch.equal(got_e, mp.plain_stage(stage, r)),
                   f"probe stage {name} != plain on {what} rows")
@@ -947,6 +984,18 @@ def probe_check(device, seed: int) -> dict:
               "ladder_launches": ladder["probe"][stage]}
         st["share_of_bound"] = st["bound_ms"] / st["kernel_ms"]
         floors = ""
+        if stage in (1, 7):  # how near the card's floors for one word a lane
+            st.update(word_floors(mp, w))
+            check(st.pop("onehot_library_equal"),
+                  "stage 1's library call != its kernel")
+            if stage == 1:
+                st["library_ms"] = lib_ms = st["onehot_library_ms"]
+            floors = (f"; floors: empty launch {st['empty_lane_grid_ms']:.4f}"
+                      f" ms at one lane a thread {st['empty_lane_grid']}, "
+                      f"{st['empty_stage_grid_ms']:.4f} at the stage's "
+                      f"{st['empty_stage_grid']}, "
+                      f"{st['empty_one_block_ms']:.4f} of one block; "
+                      f"out.copy_(w[4]) {st['copy_ms']:.4f} ms")
         if stage == 2:  # how near the card's floor for a scattered read
             st.update(dyn_floors(mp, words, w, seed))
             check(st.pop("equal"), "a stage-2 floor != what it stands in for")
@@ -962,7 +1011,8 @@ def probe_check(device, seed: int) -> dict:
               f"({st['bound_by']}; {words_read / n:.2f} words, "
               f"{sectors / n:.2f} sectors a lane; ops "
               f"{op_ms:.4f} ms), {st['share_of_bound']:.1%} of bound"
-              + (f", torch.sum {lib_ms:.4f} ms" if lib_ms else "") + floors,
+              + (f", torch.sum {lib_ms:.4f} ms" if stage in (0, 5) else "")
+              + (f", library {lib_ms:.4f} ms" if stage == 1 else "") + floors,
               flush=True)
     return {"ladder_launches": ladder, "stages": stages}
 

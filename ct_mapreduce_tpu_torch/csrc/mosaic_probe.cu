@@ -1,13 +1,13 @@
-// The probe ladder of tools/mosaic_probe.py as ten CUDA kernels, one
-// thread per lane.
+// The probe ladder of tools/mosaic_probe.py as ten CUDA kernels.
 //
 // Replaces the Pallas stage kernels that tools/mosaic_probe.py::run_stage
 // and time_stage9 launch (k_elementwise ... k_serial_extract). On the TPU
 // the ladder bisected the Mosaic lowering of a Pallas DER walker, each
 // stage adding one construct. Here each stage adds one construct on the
-// way to the walker kernel K3 (der_walk.cu), and stages 1-9 are built
-// from K3's own device functions in der_walk.cuh: the byte read of a
-// source (LaneWords) and the long-form length decode (long_form_len).
+// way to the walker kernel K3 (der_walk.cu), and the stages' byte reads
+// and headers are built from K3's own device functions in der_walk.cuh:
+// the byte read of a source (LaneWords) and the long-form length decode
+// (long_form_len).
 //
 // Layout, as in the original: words[64, lanes] big-endian uint32 (int32
 // bits) with lanes on the minor axis, so a warp reading word k of its
@@ -15,9 +15,11 @@
 //
 // What bounds them on an H100: bytes, counted in the 32-byte sectors a
 // lane's reads touch (a data-dependent read of word k costs a sector
-// that only its 7 neighbouring lanes can share). Stages 0, 4 and 5 read
-// every word of a lane (256 B) once, coalesced across the warp; stages
-// 1, 2, 6 and 7 read one word per byte read from global memory. Stage 8
+// that only its 7 neighbouring lanes can share), and for the shortest
+// stages the launch itself (see k_word_stage). Stages 0, 4 and 5 read
+// every word of a lane (256 B) once, coalesced across the warp; stages 1
+// and 7 one word of a lane, four lanes a thread; stages 2 and 6 one word
+// per byte read from global memory. Stage 8
 // stages whole rows in shared memory and walks them there (see
 // k_tlv_walk), stages 3 and 9 a window of each row (see k_fori_reads,
 // k_serial_extract).
@@ -48,23 +50,9 @@ struct ProbeTlv {
   int tag, hdr, content;
 };
 
-// The probe's TLV header: long form reads one length octet when the
-// count is 1 and two otherwise (K3 reads up to three).
-template <class Read>
-__device__ __forceinline__ ProbeTlv probe_tlv(const Read& read, int off) {
-  const int l0 = read(off + 1);
-  const bool long_form = l0 >= 0x80;
-  const int nlen = long_form ? (l0 & 0x7F) : 0;
-  const int l1 = read(off + 2), l2 = read(off + 3);
-  ProbeTlv t;
-  t.tag = read(off);
-  t.content = long_form ? derwalk::long_form_len(nlen == 1 ? 1 : 2, l1, l2, 0) : l0;
-  t.hdr = 2 + nlen;
-  return t;
-}
-
-// probe_tlv from the header's four bytes at once, byte off in the top
-// 8 bits.
+// The probe's TLV header from its four bytes, the tag in the top 8
+// bits: long form reads one length octet when the count is 1 and two
+// otherwise (K3 reads up to three).
 __device__ __forceinline__ ProbeTlv tlv_of(uint32_t v) {
   const int l0 = static_cast<int>((v >> 16) & 0xFFu);
   const int l1 = static_cast<int>((v >> 8) & 0xFFu);
@@ -96,12 +84,62 @@ PROBE_KERNEL(k_elementwise) {
   out[lane] = acc;
 }
 
-// Stage 1: one byte read at a fixed offset.
-PROBE_KERNEL(k_onehot_read) {
-  const long long lane = lane_id();
-  if (lane >= lanes) return;
-  const LaneWords src{w + lane, lanes, kRowBytes};
-  out[lane] = src(17);
+// Stages 1 and 7: one word of a lane in (word 4, word 0), one int32 out.
+//
+// A lane reads 4 B and writes 4 B, 8 MiB at 2^20 lanes: 2.5 us at 3.35
+// TB/s. At one lane a thread in blocks of 128 (the stages' first design,
+// 8,192 blocks at 2^20 lanes) the time was the grid's: on an H100 an
+// empty kernel of 8,192 blocks of 128 takes nearly as long, launched
+// back to back, as those stages did (0.0067 ms against 0.0070), one of
+// 1,024 blocks of 256 0.0024 ms and one block 0.0019 (floor (a) of
+// tools/kernel_times.py). So a thread takes kWordLanes consecutive
+// lanes with one 16-byte load and one 16-byte store, in blocks of
+// kWordThreads: 1,024 blocks at 2^20 lanes, fewer than the card holds
+// at once. Word k of lanes 4t..4t+3 is the 16 bytes at w + k * lanes +
+// 4t, 16-byte aligned for any lanes when w is and k is a multiple of 4
+// (words 0 and 4). Where w or out is not 16-byte aligned (a view into a
+// buffer), the launch takes the kernel built without the 16-byte path
+// (kAligned false); there, and for the last lanes % 4 lanes, a thread
+// loads its lanes one 4-byte word at a time, every load before its
+// first store. On an H100, blocks of 256 were 3-11% faster than blocks
+// of 128 and within 3% of blocks of 512 or 1,024; the alignment chosen
+// at the launch 2-6% faster than tested in the kernel; eight lanes a
+// thread (two 16-byte loads), four lanes 128 apart with 4-byte loads,
+// and loads that allocate no L1 line with streaming stores no faster.
+constexpr int kWordLanes = 4;
+constexpr int kWordThreads = 256;
+
+// Stage 1: one byte read at a fixed offset, byte 17 (bits 16-23 of word
+// 4).
+struct OnehotFixed {
+  static constexpr int kWord = 4;
+  __device__ __forceinline__ int operator()(uint32_t v) const {
+    return static_cast<int>((v >> 16) & 0xFFu);
+  }
+};
+
+template <class F, bool kAligned>
+__global__ void __launch_bounds__(kWordThreads)
+    k_word_stage(const uint32_t* __restrict__ w, long long lanes, int32_t* __restrict__ out) {
+  static_assert(F::kWord % 4 == 0, "word k of four lanes is 16-byte aligned only for k % 4 == 0");
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * kWordThreads + threadIdx.x) * kWordLanes;
+  if (first >= lanes) return;
+  const uint32_t* src = w + F::kWord * lanes + first;
+  int32_t* dst = out + first;
+  const F f;
+  if (kAligned && first + kWordLanes <= lanes) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+    *reinterpret_cast<int4*>(dst) = make_int4(f(v.x), f(v.y), f(v.z), f(v.w));
+    return;
+  }
+  const long long left = lanes - first;
+  uint32_t v[kWordLanes];
+#pragma unroll
+  for (int j = 0; j < kWordLanes; ++j) v[j] = j < left ? __ldg(src + j) : 0u;
+#pragma unroll
+  for (int j = 0; j < kWordLanes; ++j)
+    if (j < left) dst[j] = f(v[j]);
 }
 
 // A 4-byte load of read-only data that allocates no line in L1
@@ -240,15 +278,16 @@ PROBE_KERNEL(k_while_early_exit) {
   out[lane] = off;
 }
 
-// Stage 7: one TLV header decode at offset 0.
-PROBE_KERNEL(k_tlv_step) {
-  const long long lane = lane_id();
-  if (lane >= lanes) return;
-  const LaneWords src{w + lane, lanes, kRowBytes};
-  const ProbeTlv t = probe_tlv(src, 0);
-  const int end = t.hdr + t.content;
-  out[lane] = end < 0 ? 0 : (end > kRowBytes - 1 ? kRowBytes - 1 : end);
-}
+// Stage 7: one TLV header decode at offset 0, from word 0 in one load;
+// the header's end clipped into the row.
+struct TlvStep {
+  static constexpr int kWord = 0;
+  __device__ __forceinline__ int operator()(uint32_t v) const {
+    const ProbeTlv t = tlv_of(v);
+    const int end = t.hdr + t.content;
+    return end < 0 ? 0 : (end > kRowBytes - 1 ? kRowBytes - 1 : end);
+  }
+};
 
 // Stage 8: a chained walk of 12 headers, descending into constructed
 // tags and skipping primitives.
@@ -376,7 +415,7 @@ struct SerialWindow {
            static_cast<uint32_t>(row(q + 3));
   }
 
-  // probe_tlv from one 4-byte read.
+  // The header at off from one 4-byte read.
   __device__ __forceinline__ ProbeTlv tlv(int off) const { return tlv_of(bytes4(off)); }
 
   // Sum of row bytes lo..hi-1 (0 <= lo, hi <= kRowBytes).
@@ -440,15 +479,27 @@ PROBE_KERNEL(k_serial_extract) {
 
 using ProbeFn = void (*)(const uint32_t*, long long, int32_t*);
 const ProbeFn kStages[] = {
-    k_elementwise, k_onehot_read,      k_onehot_dyn, k_fori_reads,
-    k_fori_masked, k_uint_reduce,      k_while_early_exit,
-    k_tlv_step,    k_tlv_walk,         k_serial_extract,
+    k_elementwise, k_word_stage<OnehotFixed, true>, k_onehot_dyn, k_fori_reads,
+    k_fori_masked, k_uint_reduce,                   k_while_early_exit,
+    k_word_stage<TlvStep, true>, k_tlv_walk,        k_serial_extract,
 };
 constexpr int kNumStages = sizeof(kStages) / sizeof(kStages[0]);
-// Lanes a block of each stage covers.
+// What a stage launches instead where words or out is not 16-byte
+// aligned (nullptr: the same kernel).
+const ProbeFn kUnalignedStages[kNumStages] = {
+    nullptr, k_word_stage<OnehotFixed, false>, nullptr, nullptr, nullptr,
+    nullptr, nullptr, k_word_stage<TlvStep, false>, nullptr, nullptr};
+// Threads a block of each stage, and lanes a block covers.
+constexpr int kStageThreads[kNumStages] = {
+    kThreads, kWordThreads, kThreads, kThreads, kThreads,
+    kThreads, kThreads,     kWordThreads, kThreads, kThreads};
+constexpr int kWordBlockLanes = kWordThreads * kWordLanes;
 constexpr int kStageLanes[kNumStages] = {
-    kThreads, kThreads, kThreads, kThreads, kThreads,
-    kThreads, kThreads, kThreads, kThreads, kThreads * kSerialLanes};
+    kThreads, kWordBlockLanes, kThreads, kThreads, kThreads,
+    kThreads, kThreads,        kWordBlockLanes, kThreads, kThreads * kSerialLanes};
+
+// Reads and stores nothing: a launch's fixed cost.
+__global__ void k_empty() {}
 
 }  // namespace
 
@@ -463,8 +514,11 @@ extern "C" int ctmr_probe_stage(int stage, const void* words, long long lanes,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (lanes <= 0) return 0;
   const long long blocks = (lanes + kStageLanes[stage] - 1) / kStageLanes[stage];
-  kStages[stage]<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(words) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+  const ProbeFn fn = aligned || !kUnalignedStages[stage] ? kStages[stage] : kUnalignedStages[stage];
+  fn<<<static_cast<unsigned int>(blocks), kStageThreads[stage], 0,
+       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), lanes, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -480,4 +534,15 @@ extern "C" int ctmr_probe_l2_fetch_granularity(int device, long long* bytes) {
   err = cudaDeviceGetLimit(&v, cudaLimitMaxL2FetchGranularity);
   *bytes = static_cast<long long>(v);
   return static_cast<int>(err);
+}
+
+// An empty kernel of `blocks` blocks of `threads` threads on `stream` of
+// `device`: the fixed cost of a launch of that grid, the floor under a
+// short stage's time. Does not synchronise; returns cudaGetLastError()
+// of the launch.
+extern "C" int ctmr_probe_empty(long long blocks, int threads, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k_empty<<<static_cast<unsigned int>(blocks), threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,8 @@ Run as a script, it holds K5 at those shapes, probe stage 9 at 2^20
 certificate rows and probe stages 1, 2, 3, 4, 7 and 8 at 2^20 random
 rows to their plain versions, bit for bit, then times them with
 :func:`cuda_ms`, for the package under ``--tree`` (default: the checkout
-this file is in), and stage 2's two floors (:func:`dyn_floors`).
+this file is in), stage 2's two floors (:func:`dyn_floors`) and the
+floors of stages 1 and 7 (:func:`word_floors`).
 An older revision of the port unpacked into a directory (it needs
 ``ops/bloom_cuda.scatter`` and the probe ladder's
 ``tools/mosaic_probe.py``, as since K5 was first ported) is so timed by
@@ -173,6 +174,41 @@ def dyn_floors(mp, words: np.ndarray, w: torch.Tensor, seed: int) -> dict:
             "equal": bool(same)}
 
 
+def onehot_library(w: torch.Tensor) -> torch.Tensor:
+    """Probe stage 1 as one PyTorch call over int32[WORDS, n] words
+    (uint32 bits): byte 17 of a row is bits 16-23 of its big-endian word
+    4, byte 2 of that int32 in the little-endian memory of the card and
+    of the host. int32[1, n]."""
+    return w[4].view(torch.uint8)[2::4].to(torch.int32)[None, :]
+
+
+def word_floors(mp, w: torch.Tensor) -> dict:
+    """Floors of probe stages 1 and 7, which read one coalesced word and
+    store 4 B a lane, at ``w`` (int32[WORDS, n] on the card), each timed
+    with :func:`cuda_ms`: (a) an empty launch at one lane a thread in
+    blocks of mp.LANES (the stages' first grid), at the stages' grid
+    (``mp.word_grid``) and of one block, where the tree has
+    ``mp.empty_launch``; (b) stage
+    1's library call (:func:`onehot_library`), held equal to the stage's
+    kernel; (c) torch's copy of word 4 into 4 B a lane,
+    ``out.copy_(w[4])``, a yardstick for both stages."""
+    n = int(w.shape[1])
+    out = torch.empty((n,), dtype=torch.int32, device=w.device)
+    doc = {"onehot_library_equal": torch.equal(onehot_library(w),
+                                               mp.kernel_stage(1, w)),
+           "onehot_library_ms": float(np.median(cuda_ms(
+               lambda: onehot_library(w)))),
+           "copy_ms": float(np.median(cuda_ms(lambda: out.copy_(w[4]))))}
+    if hasattr(mp, "empty_launch"):
+        for key, grid in (("lane_grid", (-(-n // mp.LANES), mp.LANES)),
+                          ("stage_grid", mp.word_grid(n)),
+                          ("one_block", (1, mp.LANES))):
+            doc[f"empty_{key}"] = list(grid)
+            doc[f"empty_{key}_ms"] = float(np.median(cuda_ms(
+                lambda: mp.empty_launch(*grid, w.device))))
+    return doc
+
+
 def _summary(times: list[float]) -> dict:
     return {"ms": float(np.median(times)), "ms_min": min(times),
             "ms_max": max(times)}
@@ -251,6 +287,11 @@ def main(argv=None) -> int:
     ok &= floors["equal"]
     print(f"stage 2 floors: torch.gather {floors['scatter_floor_ms']:.4f} ms,"
           f" no scattered read {floors['no_scatter_ms']:.4f} ms", flush=True)
+    doc["word_floors"] = floors = word_floors(mp, w)
+    ok &= floors["onehot_library_equal"]
+    print("stages 1 and 7 floors: " + ", ".join(
+        f"{k} {v:.5f} ms" for k, v in floors.items() if k.endswith("_ms")),
+        flush=True)
     doc["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

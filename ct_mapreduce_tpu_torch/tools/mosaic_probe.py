@@ -57,6 +57,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ctmr_probe_l2_fetch_granularity.restype = ctypes.c_int
     lib.ctmr_probe_l2_fetch_granularity.argtypes = [
         ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    lib.ctmr_probe_empty.restype = ctypes.c_int
+    lib.ctmr_probe_empty.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
 
 
 LIB = cuda_build.Library("mosaic_probe.cu", ("der_walk.cuh",), _bind)
@@ -71,6 +74,32 @@ def l2_fetch_granularity(device) -> int:
     cuda_build.raise_on(LIB.get().ctmr_probe_l2_fetch_granularity(
         dev.index or 0, ctypes.byref(got)), "the L2 fetch-size query")
     return int(got.value)
+
+
+#: Stages 1 and 7 (``csrc/mosaic_probe.cu`` kWordLanes, kWordThreads):
+#: consecutive lanes a thread, one 16-byte load and store, and threads a
+#: block.
+WORD_LANES = 4
+WORD_THREADS = 256
+
+
+def word_grid(lanes: int) -> tuple[int, int]:
+    """(blocks, threads a block) that stages 1 and 7 launch over
+    ``lanes`` lanes."""
+    return -(-lanes // (WORD_THREADS * WORD_LANES)), WORD_THREADS
+
+
+def empty_launch(blocks: int, threads: int, device) -> None:
+    """Launch the library's empty kernel, ``blocks`` blocks of
+    ``threads`` threads, on the current stream of CUDA ``device``: the
+    fixed cost of a launch of that grid. Not a stage: not counted in
+    LAUNCHES."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the empty launch needs a CUDA device, got {dev}")
+    cuda_build.raise_on(LIB.get().ctmr_probe_empty(
+        blocks, threads, dev.index or 0, cuda_build.stream_of(dev)),
+        f"the empty kernel ({blocks} x {threads})")
 
 
 # -- inputs --------------------------------------------------------------
@@ -371,10 +400,46 @@ def crafted_tlv_rows(seed: int = 0, copies: int = 4) -> np.ndarray:
     return np.stack(rows, 1)
 
 
+#: Bytes 2-3 of :func:`crafted_step_rows`' headers, one set of 256 rows
+#: each.
+STEP_TAILS = ((0x00, 0x00), (0x00, 0x01), (0x00, 0xFD), (0xFF, 0xFF),
+              (0x01, 0x00))
+
+
+def crafted_step_rows(seed: int = 0, copies: int = 1) -> np.ndarray:
+    """uint32[WORDS, 1280 * copies] rows for stage 7's edges: the first
+    length octet (byte 1) at each of its 256 values, with bytes 2-3 at
+    each pair of STEP_TAILS. That covers the short form, 0x80 (count 0,
+    two length bytes read), 0x81 (one), 0xFF (hdr 129), and ends below,
+    at (0x80 with 00 FD: 2 + 253) and above the clip at 255. The tag and
+    the other words are random (from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    tails = np.repeat(np.array(STEP_TAILS, np.uint32), 256, axis=0)
+    n = len(tails) * copies
+    w = rng.integers(0, 2**32, (WORDS, n), dtype=np.uint32)
+    l0 = np.tile(np.arange(256, dtype=np.uint32), len(STEP_TAILS) * copies)
+    l12 = np.tile(tails, (copies, 1))
+    w[0] = ((w[0] & np.uint32(0xFF000000)) | (l0 << np.uint32(16))
+            | (l12[:, 0] << np.uint32(8)) | l12[:, 1])
+    return w
+
+
 def to_tensor(words: np.ndarray, device) -> torch.Tensor:
     """uint32 words → an int32 tensor of the same bits on ``device``."""
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(
         device)
+
+
+def offset_tensor(words: np.ndarray, device, offset: int = 1
+                  ) -> torch.Tensor:
+    """``words`` as a contiguous int32 view that starts ``offset`` words
+    into its buffer, so 4 * offset bytes past a 16-byte boundary for an
+    offset of 1-3."""
+    n = words.shape[1]
+    buf = torch.empty(WORDS * n + offset, dtype=torch.int32, device=device)
+    view = buf[offset:].view(WORDS, n)
+    view.copy_(to_tensor(words, device))
+    return view
 
 
 # -- plain versions ------------------------------------------------------

@@ -478,6 +478,41 @@ def test_dyn_and_window_stages_on_crafted_rows(cuda):
                 assert past.any() and not past.all()
 
 
+@pytest.mark.parametrize("stage", [1, 7])
+def test_word_stages_at_tails_off_alignment_and_on_crafted_rows(cuda, stage):
+    """Stages 1 and 7 (four lanes a thread, one 16-byte load and store)
+    at widths whose last 1, 2 or 3 lanes are a tail, in views 4, 8 and
+    12 B past a 16-byte boundary (a 4-byte load a lane), and stage 7 on
+    its edge rows, whole and shifted by one lane: equal to the plain
+    version."""
+    cases = [mosaic_probe.to_tensor(
+        mosaic_probe.random_words(lanes + stage, lanes), cuda)
+        for lanes in (1, 2, 3, 127, 129, 130, 1000, (1 << 16) + 5)]
+    for offset in (1, 2, 3):
+        view = mosaic_probe.offset_tensor(
+            mosaic_probe.random_words(offset, (1 << 16) + 3), cuda, offset)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4 * offset
+        cases.append(view)
+    if stage == 7:
+        rows = mosaic_probe.crafted_step_rows(3, 8)
+        cases += [mosaic_probe.to_tensor(r, cuda) for r in (rows, rows[:, 1:])]
+    for w in cases:
+        got = mosaic_probe.kernel_stage(stage, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, mosaic_probe.plain_stage(stage, w)), w.shape
+
+
+def test_probe_empty_launch(cuda):
+    """The empty kernel launches at the grids its floors time and counts
+    as no stage."""
+    before = list(mosaic_probe.LAUNCHES)
+    for blocks, threads in ((8192, mosaic_probe.LANES),
+                            mosaic_probe.word_grid(1 << 20), (1, 1024)):
+        mosaic_probe.empty_launch(blocks, threads, cuda)
+    torch.cuda.synchronize()
+    assert mosaic_probe.LAUNCHES == before
+
+
 @pytest.mark.parametrize("lanes", [mosaic_probe.LANES, 1000])
 def test_probe_stages_match_plain(cuda, lanes):
     for stage in range(len(mosaic_probe.STAGES)):

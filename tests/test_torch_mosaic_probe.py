@@ -113,6 +113,10 @@ def test_kernel_constants_match_the_models():
     assert consts["kWindowWords"] == tprobe.WINDOW_WORDS
     assert consts["kForiWindowWords"] == tprobe.FORI_WINDOW_WORDS
     assert consts["kForiReads"] == tprobe.FORI_READS
+    assert consts["kWordLanes"] == tprobe.WORD_LANES  # stages 1 and 7
+    assert consts["kWordThreads"] == tprobe.WORD_THREADS
+    assert tprobe.word_grid(1 << 20) == (1024, tprobe.WORD_THREADS)
+    assert tprobe.word_grid(1) == (1, tprobe.WORD_THREADS)
 
 
 def _tiles(w: np.ndarray) -> list[np.ndarray]:
@@ -207,6 +211,60 @@ def test_stage2_floor_inputs_stand_for_the_stage():
     np.testing.assert_array_equal(ns[1:], words[1:])
     np.testing.assert_array_equal(ns[0] & 0xFFFFFF, words[0] & 0xFFFFFF)
     assert len(set((ns[0] >> 24).tolist())) == 8
+
+
+def test_onehot_library_matches_plain_and_reference(jprobe):
+    """Stage 1's library form (``kernel_times.onehot_library``, byte 2 of
+    each little-endian word 4) equals the plain version and the original's
+    reference on the original's random rows."""
+    import torch
+
+    for seed in range(4):
+        w = jprobe._rows(seed)
+        t = tprobe.to_tensor(w, "cpu")
+        got = kernel_times.onehot_library(t)
+        assert got.dtype == torch.int32 and got.shape == (1, tprobe.LANES)
+        assert torch.equal(got, tprobe.plain_stage(1, t))
+        np.testing.assert_array_equal(got.numpy(), jprobe.r_onehot_read(w))
+
+
+def test_crafted_step_rows_match_reference(jprobe):
+    """Stage 7's edge rows: the first length octet at each of its 256
+    values under each pair of following bytes; the plain version equals
+    the original's reference on them, tile by tile, and the headers end
+    below, at and above the clip at 255."""
+    w = tprobe.crafted_step_rows(5, copies=2)
+    assert w.shape == (tprobe.WORDS, 2 * 256 * len(tprobe.STEP_TAILS))
+    for tile in _tiles(w):
+        np.testing.assert_array_equal(
+            tprobe.plain_stage(7, tprobe.to_tensor(tile, "cpu")).numpy(),
+            jprobe.r_tlv_step(tile))
+    l0 = (w[0] >> 16) & 0xFF
+    tail = w[0] & 0xFFFF
+    for b2, b3 in tprobe.STEP_TAILS:
+        assert sorted(l0[tail == (b2 << 8 | b3)].tolist()) == sorted(
+            list(range(256)) * 2)
+    nlen = np.where(l0 >= 0x80, l0 & 0x7F, 0)
+    content = np.where(l0 >= 0x80, np.where(nlen == 1, tail >> 8, tail), l0)
+    end = 2 + nlen + content
+    assert (end < 255).any() and (end == 255).any() and (end > 255).any()
+    got = tprobe.plain_stage(7, tprobe.to_tensor(w, "cpu")).numpy()[0]
+    np.testing.assert_array_equal(got, np.minimum(end, 255))
+
+
+def test_offset_tensor_holds_the_words_off_alignment():
+    """The unaligned views of the card tests: the same words, contiguous,
+    4 B a word of offset past the buffer's start."""
+    import torch
+
+    words = tprobe.random_words(6, 130)
+    for offset in (1, 2, 3):
+        v = tprobe.offset_tensor(words, "cpu", offset)
+        assert v.is_contiguous() and v.shape == (tprobe.WORDS, 130)
+        assert v.data_ptr() - v.untyped_storage().data_ptr() == 4 * offset
+        assert torch.equal(v, tprobe.to_tensor(words, "cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        tprobe.empty_launch(1, tprobe.LANES, "cpu")
 
 
 def _walk_offsets(words: np.ndarray) -> np.ndarray:

@@ -160,13 +160,40 @@ Phases, none of them caught — any failure exits non-zero:
    ones, one Q-table miss a distinct ECDSA key; the same pages without
    the lane for its cost; (b) verify-fetch: ct-fetch with the same
    directives over that stream served on 127.0.0.1, and
-   ``storage-statistics -json`` totals equal to the truth.
+   ``storage-statistics -json`` totals equal to the truth;
+14. the filter distribution plane and the audit on the card: (a)
+   distrib-fetch: ct-fetch with ``queryPort``, ``emitFilter``,
+   ``runForever`` and ``distribHistory`` 4 over a log of 65,536 entries
+   that grows to (iii)'s 131,072 between two rounds, so that two epochs
+   publish through ``refresh_serve_filter``, while a client posts the
+   smoke mix; then over HTTP ``/filter`` equals the artifact of the
+   final save, a conditional GET answers 304, gzip decodes to the same
+   bytes, ``/filter/manifest`` validates its links, the delta bundle of
+   the two epochs applied by the client turns the first's bytes into the
+   second's, ``/filter/container/mlbf`` and ``/clubcard`` decode to
+   artifacts answering as fl02 does on every logged serial and 4,096
+   never-logged ones, and the filter-first plane answers the smoke mix
+   as the oracle and the table tier do, with the tier armed, K5 launched
+   and ``serve.filter_negative`` above 0; ``ct-filter-torch delta``,
+   ``apply`` and ``container`` as processes round-trip the two epochs;
+   (b) audit-shard: ``tests/data/recorded_shard.json.gz`` (1,024
+   entries) through ``python -m ct_mapreduce_tpu_torch.tools.audit``'s
+   ``main`` at tile 1 and at tile 128 (131,072 entries, the verify lane
+   on, flush and batch 4,096): the tiled report is 128 times tile 1's
+   and its verdict counts what the shard's mix implies, the quarantine
+   spool (a temporary directory) replays as many records as the report
+   counts (0), the ``--emit-filter`` artifact loads in
+   ``ct-filter-torch inspect`` (a process); then ``classify_corpus`` on
+   the card over the shard's DERs and 8,192 structured mutants: no
+   verdict mismatch, buckets equal to the plain walker's on the same
+   corpus, the trend written to a temporary file.
 
 The kernels' launch counts are set to 0 just before each main path
 (walker, pre-parsed, both lanes on the open table, probe ladder, each
 sink configuration, each ct-fetch run, the served ct-fetch, the filter
 emission and fl01 build of 12 (a), the ct-fetch of 12 (b), the build of
-12 (c), 13 (a)'s sinks and 13 (b)'s ct-fetch) and read just after it. Prints the
+12 (c), 13 (a)'s sinks and 13 (b)'s ct-fetch, 14 (a)'s ct-fetch, 14 (b)'s
+tile-128 audit and its ``classify_corpus``) and read just after it. Prints the
 card line, a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1739,16 +1766,16 @@ FETCH_RUNS = {
 
 def serve_logs(seed: int, conn) -> None:
     """The log server, in a process of its own (so its HTTP and JSON work
-    does not share ct-fetch's interpreter): phase 8's stream as two logs
-    on 127.0.0.1 — ``full``, FETCH_ENTRIES entries, and ``grow`` and
-    ``part``, its first RESUME_ENTRIES[0] and SERVE_FETCH_ENTRIES entries —
-    each entry made by
-    ``sink_entries`` in calls of FETCH_CHUNK lanes, so ``fetch_oracle``
-    regenerates the truth from the same seed. Sends the three URLs on
-    ``conn``, then
-    answers "grow" (``grow`` takes RESUME_ENTRIES[1] entries), "starts"
-    (the ``start`` of each get-entries request ``grow`` has answered
-    since the last ask) and "stop"."""
+    does not share ct-fetch's interpreter): phase 8's stream as logs on
+    127.0.0.1 — ``full``, FETCH_ENTRIES entries, and ``grow``, ``part``
+    and ``dist``, its first RESUME_ENTRIES[0], SERVE_FETCH_ENTRIES and
+    RESUME_ENTRIES[0] entries — each entry made by ``sink_entries`` in
+    calls of FETCH_CHUNK lanes, so ``fetch_oracle`` regenerates the truth
+    from the same seed. Sends the four URLs on ``conn``, then answers
+    "grow" (``grow`` takes RESUME_ENTRIES[1] entries), "grow dist"
+    (``dist`` takes SERVE_FETCH_ENTRIES, for phase 14), "starts" (the
+    ``start`` of each get-entries request ``grow`` has answered since the
+    last ask) and "stop"."""
     sys.path.insert(0, HERE)
     from ct_mapreduce_tpu_torch.utils.fakelog import FakeLog, LogServer
 
@@ -1757,6 +1784,7 @@ def serve_logs(seed: int, conn) -> None:
     full = FakeLog(url="https://ct.smoke.example/full")
     grow = FakeLog(url="https://ct.smoke.example/grow")
     part = FakeLog(url="https://ct.smoke.example/part")
+    dist = FakeLog(url="https://ct.smoke.example/dist")
     for _ in range(FETCH_ENTRIES // FETCH_CHUNK):
         lis, eds, _, _ = sink_entries(stream, extra, FETCH_CHUNK, SINK_REPLAY)
         for li, ed in zip(lis, eds):
@@ -1765,15 +1793,21 @@ def serve_logs(seed: int, conn) -> None:
         grow.add_raw(e["leaf_input"], e["extra_data"])
     for e in full.entries[:SERVE_FETCH_ENTRIES]:
         part.add_raw(e["leaf_input"], e["extra_data"])
+    for e in full.entries[:RESUME_ENTRIES[0]]:
+        dist.add_raw(e["leaf_input"], e["extra_data"])
     with LogServer(full) as s_full, LogServer(grow) as s_grow, \
-            LogServer(part) as s_part:
-        conn.send((s_full.url, s_grow.url, s_part.url))
+            LogServer(part) as s_part, LogServer(dist) as s_dist:
+        conn.send((s_full.url, s_grow.url, s_part.url, s_dist.url))
         while True:
             msg = conn.recv()
             if msg == "grow":
                 for e in full.entries[len(grow.entries):RESUME_ENTRIES[1]]:
                     grow.add_raw(e["leaf_input"], e["extra_data"])
                 conn.send(len(grow.entries))
+            elif msg == "grow dist":
+                for e in full.entries[len(dist.entries):SERVE_FETCH_ENTRIES]:
+                    dist.add_raw(e["leaf_input"], e["extra_data"])
+                conn.send(len(dist.entries))
             elif msg == "starts":
                 conn.send([int(r.split("start=")[1].split("&")[0])
                            for r in grow.requests if "get-entries" in r])
@@ -1796,8 +1830,8 @@ class LogProcess:
         self.proc.start()
         self.urls = None
 
-    def wait_ready(self) -> tuple[str, str, str]:
-        """The three logs' URLs, once the server has made them."""
+    def wait_ready(self) -> tuple[str, str, str, str]:
+        """The four logs' URLs, once the server has made them."""
         if self.urls is None:
             check(self._conn.poll(900), "the log server never came up")
             self.urls = self._conn.recv()
@@ -2013,7 +2047,7 @@ def fetch_phase(device, logs: LogProcess, seed: int) -> dict:
 
     from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
 
-    full_url, grow_url, _part_url = logs.wait_ready()
+    full_url, grow_url, _part_url, _dist_url = logs.wait_ready()
     stream, seen = fetch_oracle(seed, (RESUME_ENTRIES[0], RESUME_ENTRIES[1],
                                        SERVE_FETCH_ENTRIES, FETCH_ENTRIES))
     d = os.path.join(HERE, "build", "smoke_fetch")
@@ -2118,7 +2152,7 @@ def fetch_phase(device, logs: LogProcess, seed: int) -> dict:
     del one_model
     out["d"] = {"runs": d_runs, "one": run, "pems": n_pems,
                 "pem_check_s": pem_check_s}
-    out["_oracle"] = (stream, seen[SERVE_FETCH_ENTRIES])  # phase 11 (iii)
+    out["_oracle"] = (stream, seen[SERVE_FETCH_ENTRIES])  # 11 (iii), 14 (a)
     print(f"phase 10 (d): resumed drain == one run over {RESUME_ENTRIES[1]} "
           f"entries == oracle; {n_pems} PEM files, one per first-seen "
           f"serial, each decoding to its leaf (checked in "
@@ -2241,6 +2275,7 @@ class RoundClock:
         from ct_mapreduce_tpu_torch.cmd import ct_fetch
 
         self.engines, self.done, self.round_s = [], threading.Event(), None
+        self.rounds = 0  # sync rounds ended so far
         self._base = base = ct_fetch.LogSyncEngine
         clock = self
 
@@ -2253,6 +2288,7 @@ class RoundClock:
                 super().stop()
                 if clock.round_s is None:
                     clock.round_s = time.perf_counter() - clock.t0
+                clock.rounds += 1
                 clock.done.set()
 
         ct_fetch.LogSyncEngine = Engine
@@ -4011,6 +4047,504 @@ def verify_phase(device, seed: int) -> dict:
     return out
 
 
+# -- phase 14: the distribution plane and the audit on the card ----------
+
+DIST_POLL_S = "2s"  # (a): ct-fetch's pollingDelayMean between rounds
+DIST_GHOSTS = 1 << 12  # (a): never-logged serials the containers answer
+AUDIT_TILE = 128  # (b): tiles of the 1,024-entry recorded shard
+AUDIT_FLUSH = 4096  # (b): the audit sink's flush and the aggregator's batch
+AUDIT_MUTANTS = 8192  # (b): structured mutants beside the shard's DERs
+AUDIT_SHARD = os.path.join(HERE, "tests", "data", "recorded_shard.json.gz")
+
+
+def _http_get(url: str, headers=None):
+    """(status, headers, body) of a GET; a 304 or an error is an answer,
+    not an exception."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.headers, err.read()
+
+
+def _dist_query_items(agg, queries: list):
+    """The /query objects as the oracle's (issuer index, hour, serial)."""
+    from ct_mapreduce_tpu_torch.core.types import ExpDate
+
+    out = []
+    for q in queries:
+        idx = agg.registry.index_of_issuer_id(q["issuer"])
+        out.append((-1 if idx is None else idx,
+                    ExpDate.parse(q["expDate"]).unix_hour(),
+                    bytes.fromhex(q["serial"])))
+    return out
+
+
+def _answers_match(art, other, groups: dict, ghosts: dict, device) -> int:
+    """Both artifacts answer every serial of ``groups`` and ``ghosts``
+    ({(issuerID, hour): [serial]}) the same, every logged serial known
+    in both; returns the answers compared."""
+    import numpy as np
+
+    n = 0
+    for key in sorted(set(groups) | set(ghosts)):
+        g, h = art.group_for(*key), other.group_for(*key)
+        check((g is None) == (h is None), f"distrib-fetch: group {key} "
+              "in one artifact only")
+        if g is None:
+            continue
+        logged = sorted(groups.get(key, ()))
+        probe = logged + list(ghosts.get(key, ()))
+        a = art.query_group(g, probe, device=device)
+        b = other.query_group(h, probe, device=device)
+        check(np.array_equal(a, b), f"distrib-fetch: the answers of group "
+              f"{key} differ")
+        check(bool(a[:len(logged)].all()), f"distrib-fetch: a logged serial "
+              f"of {key} answers unknown")
+        n += len(probe)
+    return n
+
+
+def distrib_fetch(device, dist_url: str, logs, stream: Stream, truth,
+                  seed: int) -> dict:
+    """Phase 14 (a), distrib-fetch: ct-fetch with ``queryPort``,
+    ``emitFilter``, ``runForever`` and ``distribHistory`` 4 over the
+    ``dist`` log, which holds RESUME_ENTRIES[0] entries and grows to
+    SERVE_FETCH_ENTRIES between two rounds, so that two epochs publish
+    through ``refresh_serve_filter``. While it runs a client posts the
+    smoke mix (no never-logged serial may answer known). Then, over HTTP:
+    ``/filter`` equals the emitted artifact after the final save, a
+    conditional GET answers 304, gzip decodes to the same bytes, the
+    manifest validates its links, the delta bundle e1 → e2 applied by
+    the client turns e1's bytes into e2's, both containers decode to
+    artifacts answering as fl02 does on every logged serial and
+    DIST_GHOSTS never-logged ones; the filter-first plane answers the
+    smoke mix with no false negative and as the table oracle does, with
+    the tier armed, K5 launched and ``serve.filter_negative`` above 0.
+    Last, ``ct-filter-torch delta``, ``apply`` and ``container`` as
+    processes round-trip the two epochs."""
+    import gzip
+    import shutil
+    import socket
+    import threading
+
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch import distrib
+    from ct_mapreduce_tpu_torch.cmd import ct_fetch
+    from ct_mapreduce_tpu_torch.filter import FilterArtifact
+    from ct_mapreduce_tpu_torch.serve import server as serve_server
+    from ct_mapreduce_tpu_torch.serve.client import QueryClient
+    from ct_mapreduce_tpu_torch.telemetry import metrics
+
+    d = os.path.join(HERE, "build", "smoke_distrib")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    state = os.path.join(d, "dist.npz")
+    fpath = state + ".filter"
+    ini = _fetch_ini(os.path.join(d, "dist.ini"), dist_url, state, stream, {
+        "queryPort": port, "serveReplicas": SERVE_REPLICAS,
+        "serveCacheSize": -1, "emitFilter": "true", "runForever": "true",
+        "pollingDelayMean": DIST_POLL_S, "distribHistory": 4})
+    queries, want, _o, _t, _c, _f = serve_queries(stream, truth, FETCH_PROBES,
+                                                  seed)
+    result, servers, built = {}, [], {}
+    orig_start, orig_sink = serve_server.QueryServer.start, ct_fetch.build_sink
+
+    def start(self):
+        servers.append(self)
+        return orig_start(self)
+
+    def sink_spy(config, **kw):
+        sink, model = orig_sink(config, **kw)
+        built["model"] = model
+        return sink, model
+
+    def run():
+        try:
+            result["rc"] = ct_fetch.main(["-config", ini, "-nobars"],
+                                         device=device)
+        except BaseException as err:  # reported by the main thread
+            result["err"] = err
+
+    base = f"http://127.0.0.1:{port}"
+    client = QueryClient(f"127.0.0.1:{port}", timeout_s=60)
+    lo = [0]
+
+    def ask() -> None:
+        """One POST of the smoke mix: no never-logged serial known."""
+        part = queries[lo[0]:lo[0] + SERVE_POST]
+        got = [r["known"] for r in client.query(part)["results"]]
+        w = want[lo[0]:lo[0] + SERVE_POST]
+        check(not any(k and not ww for k, ww in zip(got, w)),
+              "distrib-fetch: a never-logged serial answered known")
+        lo[0] = (lo[0] + SERVE_POST) % len(queries)
+
+    def published(what: str, min_rounds: int, deadline_s: float = 300):
+        """Polls until ct-fetch has ended ``min_rounds`` rounds and the
+        store's latest epoch is the artifact on disk; (epoch, bytes)."""
+        deadline = time.time() + deadline_s
+        while True:
+            check(fetch.is_alive(), f"distrib-fetch: ct-fetch ended early "
+                  f"({result.get('err')!r}, rc {result.get('rc')})")
+            if clock.rounds >= min_rounds and os.path.exists(fpath):
+                with open(fpath, "rb") as f:
+                    blob = f.read()
+                code, _, body = _http_get(base + "/filter/manifest")
+                man = json.loads(body) if code == 200 else {}
+                if man.get("latestSha256") == hashlib.sha256(blob).hexdigest():
+                    return man["latestEpoch"], blob
+            check(time.time() < deadline, f"distrib-fetch: {what} was never "
+                  "published")
+            ask()
+            time.sleep(0.05)
+
+    metrics.get_sink().reset()
+    serve_server.QueryServer.start = start
+    ct_fetch.build_sink = sink_spy
+    t0 = time.perf_counter()
+    try:
+        with RoundClock() as clock:
+            reset_counts()
+            fetch = threading.Thread(target=run, name="smoke-distrib-fetch")
+            fetch.start()
+            try:
+                deadline = time.time() + 300
+                while True:
+                    try:
+                        client.healthz()
+                        break
+                    except OSError:
+                        check(fetch.is_alive() and time.time() < deadline,
+                              f"distrib-fetch: the query plane never came "
+                              f"up ({result.get('err')!r})")
+                        time.sleep(0.02)
+                e1, blob1 = published("the first round's artifact", 1)
+                e1_s = time.perf_counter() - t0
+                check(logs.ask("grow dist") == SERVE_FETCH_ENTRIES,
+                      "distrib-fetch: the log did not grow")
+                rounds_before = clock.rounds
+                e2, blob2 = published("the grown log's artifact",
+                                      rounds_before + 1)
+                while FilterArtifact.from_bytes(blob2).n_serials \
+                        < int(np.count_nonzero(truth)):
+                    e2, blob2 = published("the grown log's artifact",
+                                          clock.rounds + 1)
+                e2_s = time.perf_counter() - t0
+                check(e2 > e1 and blob2 != blob1,
+                      "distrib-fetch: the second epoch did not publish")
+                # The smoke mix through the filter-first plane, every
+                # answer held to the oracle and to the table tier.
+                got, _, _, _ = _post_all(f"127.0.0.1:{port}", queries,
+                                         SERVE_CLIENTS)
+                srv = servers[0]
+                oracle = srv.oracle
+                health = client.healthz()
+                code, hdr, full = _http_get(base + "/filter")
+                etag = hdr["ETag"]
+                c304 = _http_get(base + "/filter", {"If-None-Match": etag})
+                gz = _http_get(base + "/filter", {"Accept-Encoding": "gzip"})
+                mcode, _, mbody = _http_get(base + "/filter/manifest")
+                dcode, dhdr, bundle = _http_get(
+                    f"{base}/filter/delta/{e1}/{e2}")
+                conts = {k: _http_get(f"{base}/filter/container/{k}")
+                         for k in distrib.CONTAINER_KINDS}
+                snap = metrics.get_sink().snapshot()["counters"]
+            finally:
+                for e in clock.engines:
+                    e.signal_stop()
+                fetch.join(timeout=600)
+    finally:
+        serve_server.QueryServer.start = orig_start
+        ct_fetch.build_sink = orig_sink
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check(not fetch.is_alive() and result.get("rc") == 0,
+          f"distrib-fetch: ct-fetch exit {result.get('rc')} "
+          f"({result.get('err')!r})")
+    with open(fpath, "rb") as f:
+        final = f.read()
+    check(code == 200 and full == final == blob2,
+          "distrib-fetch: /filter differs from the artifact of the final save")
+    check(etag == '"' + hashlib.sha256(final).hexdigest() + '"',
+          "distrib-fetch: the ETag is not the artifact's SHA-256")
+    check(c304[0] == 304 and c304[2] == b"",
+          f"distrib-fetch: the conditional GET answered {c304[0]}")
+    check(gz[0] == 200 and gz[1]["Content-Encoding"] == "gzip"
+          and gzip.decompress(gz[2]) == final,
+          "distrib-fetch: the gzip body differs")
+    man = json.loads(mbody)
+    check(mcode == 200 and dcode == 200, f"distrib-fetch: manifest "
+          f"{mcode}, delta {dcode}")
+    links = distrib.split_bundle(bundle)
+    distrib.ChainManifest.from_json(man).validate_chain(e1, e2, links)
+    check(distrib.apply_chain(blob1, links) == blob2,
+          "distrib-fetch: the delta bundle does not replay e1 to e2")
+    check(man["format"] == "CTMRDL02" and "immutable"
+          in dhdr["Cache-Control"], f"distrib-fetch: manifest {man['format']}")
+    # The tier is armed, and it answered negatives itself.
+    check(health["filter_first"] is True and "filter_epoch" in health
+          and health["filter_serials"] == int(np.count_nonzero(truth)),
+          f"distrib-fetch: the filter tier is not armed: {health}")
+    check(oracle.filter_tier is not None and launches["bloom_scatter"] > 0,
+          "distrib-fetch: the tier was built without K5")
+    check(snap.get("serve.filter_negative", 0) > 0,
+          "distrib-fetch: the filter tier answered no negative")
+    check(snap.get("serve.device_fallback", 0) == 0,
+          "distrib-fetch: a replica fell back to the host")
+    check(np.array_equal(got, want), "distrib-fetch: the filter-first plane "
+          "answered the smoke mix wrong (a false negative or positive)")
+    from ct_mapreduce_tpu_torch.serve.server import MembershipOracle
+
+    table = MembershipOracle(built["model"].aggregator, filter_first=False,
+                             replicas=1, cache_size=-1)
+    try:
+        tab = np.array([r[0] for r in table.query_raw(
+            _dist_query_items(built["model"].aggregator, queries))], bool)
+    finally:
+        table.close()
+    check(np.array_equal(tab, got), "distrib-fetch: the filter-first answers "
+          "differ from the table oracle's")
+    # Both containers against fl02, on every logged serial and ghosts.
+    art = FilterArtifact.from_bytes(final)
+    groups = {k: v for k, v in _oracle_serials(stream, truth).items()}
+    rng = np.random.default_rng(seed + 14)
+    keys = sorted(groups)
+    ghosts: dict = {}
+    for i in range(DIST_GHOSTS):
+        key = keys[i % len(keys)]
+        ghosts.setdefault(key, []).append(b"\x7e" + rng.bytes(12))
+    compared = {}
+    for kind, (ccode, chdr, cblob) in conts.items():
+        check(ccode == 200, f"distrib-fetch: /filter/container/{kind} "
+              f"answered {ccode}")
+        back = distrib.decode_container(cblob)
+        check(back.to_bytes() == final, f"distrib-fetch: the {kind} "
+              "container does not decode to fl02's bytes")
+        compared[kind] = _answers_match(art, back, groups, ghosts, device)
+    # The offline plane as processes over the two epochs.
+    p1, p2 = os.path.join(d, "e1.filter"), os.path.join(d, "e2.filter")
+    with open(p1, "wb") as f:
+        f.write(blob1)
+    with open(p2, "wb") as f:
+        f.write(blob2)
+    cli = [sys.executable, "-m", "ct_mapreduce_tpu_torch.cmd.ct_filter"]
+    procs = {
+        "delta": subprocess.Popen(
+            cli + ["delta", "-base", p1, "-target", p2, "-out",
+                   os.path.join(d, "e1-e2.delta"), "-fromEpoch", str(e1),
+                   "-toEpoch", str(e2)], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
+        **{f"container_{k}": subprocess.Popen(
+            cli + ["container", "-artifact", p2, "-kind", k, "-out",
+                   os.path.join(d, f"e2.{k}")], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+           for k in distrib.CONTAINER_KINDS}}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"ct-filter-torch {name}: exit "
+              f"{proc.returncode}: {err[-400:]}")
+    res = subprocess.run(cli + ["apply", "-base", p1, "-delta",
+                                os.path.join(d, "e1-e2.delta"), "-out",
+                                os.path.join(d, "replayed.filter")],
+                         cwd=HERE, capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"ct-filter-torch apply: exit "
+          f"{res.returncode}: {res.stderr[-400:]}")
+    with open(os.path.join(d, "e1-e2.delta"), "rb") as f:
+        check(f.read() == distrib.compute_delta(blob1, blob2, e1, e2),
+              "ct-filter-torch delta differs from the plane's link")
+    with open(os.path.join(d, "replayed.filter"), "rb") as f:
+        check(f.read() == blob2, "ct-filter-torch apply does not replay e2")
+    for k in distrib.CONTAINER_KINDS:
+        with open(os.path.join(d, f"e2.{k}"), "rb") as f:
+            check(f.read() == conts[k][2], f"ct-filter-torch container {k} "
+                  "differs from the served container")
+    out = {"entries": SERVE_FETCH_ENTRIES, "wall_s": wall,
+           "first_epoch_s": e1_s, "second_epoch_s": e2_s,
+           "epochs": [e1, e2], "epochs_held": man["epochsHeld"],
+           "artifact_bytes": [len(blob1), len(blob2)],
+           "bundle_bytes": len(bundle), "gzip_bytes": len(gz[2]),
+           "container_bytes": {k: len(v[2]) for k, v in conts.items()},
+           "answers_compared": compared, "serials": art.n_serials,
+           "filter_negative": snap.get("serve.filter_negative", 0),
+           "filter_forward": snap.get("serve.filter_forward", 0),
+           "filter_refresh": snap.get("serve.filter_refresh", 0),
+           "http_304": snap.get("distrib.http_304", 0),
+           "launches": launches}
+    print(f"phase 14 (a) distrib-fetch: ct-fetch with queryPort + emitFilter "
+          f"over {RESUME_ENTRIES[0]} then {SERVE_FETCH_ENTRIES} entries, "
+          f"epochs {e1} and {e2} published at {e1_s:.1f} and {e2_s:.1f} s "
+          f"({wall:.1f} s in all); /filter == the final artifact "
+          f"({len(final)} B), 304, gzip {len(gz[2])} B, bundle "
+          f"{len(bundle)} B replays e1 to e2, mlbf and clubcard answer as "
+          f"fl02 on {compared['mlbf']} serials; the smoke mix through the "
+          f"filter tier == oracle == table ({out['filter_negative']:.0f} "
+          f"filter negatives); ct-filter-torch delta/apply/container "
+          f"round-trip; launches {launches['sha256_fp']} K1, "
+          f"{launches['der_walk']} K3, {launches['bloom_scatter']} K5, "
+          f"{launches['ecdsa_verify']} K6; {card_line()}", flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def _audit_json(argv: list, device) -> tuple[int, dict]:
+    """The port's audit entry point in this process, ``--json``."""
+    import contextlib
+    import io
+
+    from ct_mapreduce_tpu_torch.tools import audit as audit_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = audit_cli.main(argv + ["--json"], device=device)
+    return rc, json.loads(buf.getvalue())
+
+
+def audit_shard(device, seed: int) -> dict:
+    """Phase 14 (b), audit-shard: the checked-in recorded shard (1,024
+    entries) through the port's audit entry point on the card, at tile 1
+    and at tile AUDIT_TILE (131,072 entries, the verify lane on): the
+    tiled report is AUDIT_TILE times the tile-1 one and each verdict
+    count what the shard's mix implies; the quarantine spool (a
+    temporary directory) replays as many records as the report counts;
+    the ``--emit-filter`` artifact loads in ``ct-filter-torch inspect`` (a
+    process). Then ``classify_corpus`` on the card over the shard's DERs
+    and AUDIT_MUTANTS structured mutants: no verdict mismatch, buckets
+    equal to the same corpus through the plain walker, the trend written
+    to a temporary file."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch.audit import driver as drvlib
+    from ct_mapreduce_tpu_torch.audit import fixture as fxlib
+    from ct_mapreduce_tpu_torch.audit import quarantine as quarlib
+    from ct_mapreduce_tpu_torch.core import divergence
+    from ct_mapreduce_tpu_torch.filter import read_artifact
+
+    tmp = tempfile.mkdtemp(prefix="smoke-audit-")
+    try:
+        flags = ["--recorded", AUDIT_SHARD, "--flush-size", str(AUDIT_FLUSH),
+                 "--batch-size", str(AUDIT_FLUSH)]
+        t0 = time.perf_counter()
+        rc1, one = _audit_json(flags + ["--quarantine-dir",
+                                        os.path.join(tmp, "q1")], device)
+        one_s = time.perf_counter() - t0
+        check(rc1 == 0, f"audit-shard: tile 1 exit {rc1}")
+        fpath = os.path.join(tmp, "audit.filter")
+        qdir = os.path.join(tmp, "spool")
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, rep = _audit_json(flags + ["--tile", str(AUDIT_TILE),
+                                       "--quarantine-dir", qdir,
+                                       "--emit-filter", fpath], device)
+        tile_s = time.perf_counter() - t0
+        launches = read_counts()
+        check(rc == 0, f"audit-shard: tile {AUDIT_TILE} exit {rc}")
+        check(launches["der_walk"] > 0 and launches["sha256_fp"] > 0
+              and launches["ecdsa_verify"] > 0,
+              f"audit-shard: a kernel of the sink never ran: {launches}")
+        scaled = ("entries", "sct_lanes", "no_sct", "unknown_log", "retired",
+                  "out_of_interval", "verified", "failed", "verifier_no_sct",
+                  "verifier_no_key", "device_lanes", "host_lanes",
+                  "decode_failed", "quarantined")
+        for k in scaled:
+            check(rep[k] == AUDIT_TILE * one[k], f"audit-shard: {k} "
+                  f"{rep[k]} != {AUDIT_TILE} x {one[k]}")
+        check(rep["perIssuer"] == {i: [AUDIT_TILE * v, AUDIT_TILE * f]
+                                   for i, (v, f) in one["perIssuer"].items()},
+              "audit-shard: the per-issuer folds do not scale with the tile")
+        check(rep["perLog"] == {k: AUDIT_TILE * v
+                                for k, v in one["perLog"].items()},
+              "audit-shard: the per-log lanes do not scale with the tile")
+        mix = drvlib.load_recorded(AUDIT_SHARD)["mix"]
+        want = {"verified": mix["p256_valid"] + mix["p384_retired"]
+                + mix["rsa"] + mix["out_of_interval"],
+                "failed": mix["p256_corrupt"],
+                "verifier_no_key": mix["unknown_log"],
+                "unknown_log": mix["unknown_log"],
+                "retired": mix["p384_retired"],
+                "out_of_interval": mix["out_of_interval"],
+                "no_sct": mix["no_sct"], "host_lanes": mix["rsa"]}
+        check(fxlib.expected_tallies()["verified"] == want["verified"],
+              "audit-shard: the mix disagrees with the generator's tallies")
+        for k, v in want.items():
+            check(rep[k] == AUDIT_TILE * v, f"audit-shard: {k} {rep[k]}, "
+                  f"the mix implies {AUDIT_TILE * v}")
+        spool = quarlib.QuarantineSpool(qdir)
+        check(len(spool.replay()) == rep["quarantined"] == 0
+              and rep["divergence_measured"],
+              f"audit-shard: quarantined {rep['quarantined']}, spool "
+              f"{len(spool.replay())}")
+        res = subprocess.run(
+            [sys.executable, "-m", "ct_mapreduce_tpu_torch.cmd.ct_filter",
+             "inspect", "-artifact", fpath, "-json"], cwd=HERE,
+            capture_output=True, text=True, timeout=300)
+        check(res.returncode == 0, f"ct-filter-torch inspect: exit "
+              f"{res.returncode}: {res.stderr[-400:]}")
+        inspected = json.loads(res.stdout)
+        check(inspected["serials"] == 1024 == read_artifact(fpath).n_serials
+              and inspected["groups"] == fxlib.N_ISSUERS,
+              f"audit-shard: the emitted filter holds {inspected['serials']} "
+              f"serials in {inspected['groups']} groups")
+        # The parser-divergence harness on the card.
+        ders = fxlib.shard_ders(drvlib.load_recorded(AUDIT_SHARD))
+        corpus = ders + divergence.grammar_mutants(
+            ders, np.random.default_rng(seed + 140), AUDIT_MUTANTS)
+        reset_counts()
+        t0 = time.perf_counter()
+        card = divergence.classify_corpus(corpus, device=device)
+        classify_s = time.perf_counter() - t0
+        classify_launches = read_counts()
+        t0 = time.perf_counter()
+        plain = divergence.classify_corpus(corpus, device="cpu")
+        plain_s = time.perf_counter() - t0
+        check(classify_launches["der_walk"] == 1,
+              f"audit-shard: classify_corpus launched K3 "
+              f"{classify_launches['der_walk']} times")
+        check(card.verdict_mismatch == 0, "audit-shard: verdict mismatch "
+              f"{card.verdict_mismatch}: {card.details[:2]}")
+        check(dataclasses.asdict(card) == dataclasses.asdict(plain),
+              "audit-shard: the card's buckets differ from the plain "
+              "walker's")
+        trend = divergence.record_trend(card, os.path.join(tmp, "trend.json"),
+                                        corpus="fuzz")
+        check(trend["runs"][-1]["total"] == len(corpus),
+              "audit-shard: the trend did not record the run")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"entries": rep["entries"], "tile": AUDIT_TILE,
+           "tile1_s": one_s, "tile_s": tile_s,
+           "entries_per_s": rep["entries"] / tile_s,
+           "report": {k: rep[k] for k in scaled},
+           "launches": launches, "classify": dataclasses.asdict(card),
+           "classify_s": classify_s, "classify_plain_s": plain_s,
+           "classify_launches": classify_launches}
+    print(f"phase 14 (b) audit-shard: the recorded shard at tile "
+          f"{AUDIT_TILE}, {rep['entries']} entries in {tile_s:.1f} s "
+          f"(tile 1: {one_s:.1f} s) == {AUDIT_TILE} x tile 1 == the mix "
+          f"(verified {rep['verified']}, failed {rep['failed']}, unknown "
+          f"log {rep['unknown_log']}, out of interval "
+          f"{rep['out_of_interval']}, retired {rep['retired']}), quarantined "
+          f"0 (spool empty), the filter inspects; launches "
+          f"{launches['sha256_fp']} K1, {launches['der_walk']} K3, "
+          f"{launches['bloom_scatter']} K5, {launches['ecdsa_verify']} K6; "
+          f"classify_corpus over {len(corpus)} DERs in {classify_s:.2f} s "
+          f"(plain walker {plain_s:.2f} s): no verdict mismatch, buckets == "
+          f"the plain walker's, launches {classify_launches['der_walk']} K3; "
+          f"{card_line()}", flush=True)
+    return out
+
+
 def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
                  preparsed: dict, sinks: dict, fetch: dict,
                  extra_paths: dict, k5: dict, k6: dict) -> dict:
@@ -4227,11 +4761,20 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
     filt = filter_phase(device, args.seed,
                         lanes["walker"]["ingest_s_per_batch"],
                         logs.wait_ready()[2], fetch_truth)
-    logs.stop()
     lap("12")
     torch.cuda.empty_cache()
     verify = verify_phase(device, args.seed)
     lap("13")
+    torch.cuda.empty_cache()
+    dist = distrib_fetch(device, logs.wait_ready()[3], logs, *fetch_truth,
+                         args.seed)
+    logs.stop()
+    lap("14a")
+    print(f"phase 14 (a): {phase_s['14a']:.1f} s on {card}", flush=True)
+    torch.cuda.empty_cache()
+    audit = audit_shard(device, args.seed)
+    lap("14b")
+    print(f"phase 14 (b): {phase_s['14b']:.1f} s on {card}", flush=True)
     prof = None
     if args.profile:
         torch.cuda.empty_cache()
@@ -4245,7 +4788,8 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
                "walker_kernel": k3, "probe": probe, "lanes": lanes,
                "open_layout": opened, "big_table": big, "sinks": sinks,
                "checkpoints": ckpts, "fetch": fetch, "serve": serve,
-               "filter": filt, "verify": verify, "profile": prof, "sass": sass,
+               "filter": filt, "verify": verify, "distrib": dist,
+               "audit": audit, "profile": prof, "sass": sass,
                "phase_s": phase_s,
                "wall_s": time.perf_counter() - t_start}
     print("phase seconds: " + ", ".join(
@@ -4269,7 +4813,10 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
                    "verify_sink_p256": verify["sink"]["p256_lane"]["launches"],
                    "verify_sink_p256_off":
                        verify["sink"]["p256_no_lane"]["launches"],
-                   "verify_fetch": verify["fetch"]["launches"]}
+                   "verify_fetch": verify["fetch"]["launches"],
+                   "distrib_fetch": dist["launches"],
+                   "audit_shard": audit["launches"],
+                   "audit_classify": audit["classify_launches"]}
     print(json.dumps(kernels_line(k1, k3, probe, lanes["walker"],
                                   lanes["preparsed"], sinks, fetch,
                                   extra_paths, filt["k5"], verify["k6"])),

@@ -22,13 +22,17 @@ aggregator's device (K1 and K5 on the card); ``filterFpRate``,
 ``filterFormat``, ``filterStreamChunk``, ``filterFusedLanes`` and the
 capture spill ring (``filterCaptureSpillDir``/``filterCaptureSpillMB``)
 resolve through :func:`..filter.resolve_filter` as in the JAX package.
-The fleet's merged filter and the serve plane's filter tier come with
-the fleet (item 12) and the distribution plane (item 15).
+The fleet's merged filter comes with the fleet (item 12).
 
 ``queryPort`` starts the query plane (``serve/server.py``) over the
 live aggregator, on the aggregator's device: membership answers from
 pinned copies of the dedup table, ``/issuer``, ``/healthz`` and the
-``/getcert`` proxy, while the run ingests.
+``/getcert`` proxy, while the run ingests. With ``emitFilter`` as well,
+the plane arms its filter-first tier and the ``/filter*`` distribution
+routes (``distribHistory`` epochs held, a full-snapshot anchor every
+``maxDeltaChain`` links); the tier is rebuilt after every checkpoint
+save and every round's save (:func:`refresh_serve_filter`), each rebuild
+publishing one epoch.
 
 ``verifySignatures`` verifies the embedded SCT of every ingested
 certificate against the keys of ``verifyLogKeys``: P-256 and P-384 keys
@@ -248,6 +252,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
         stream_chunk=config.filter_stream_chunk,
         fused_lanes=config.filter_fused_lanes,
         fmt=config.filter_format)
+    emit_filter = fknobs.emit
     if fknobs.emit and model is not None:
         model.aggregator.configure_filter_emission(
             fknobs.path, fknobs.fp_rate, spill_dir=fknobs.spill_dir,
@@ -257,6 +262,23 @@ def main(argv: list[str] | None = None, device=None) -> int:
     elif fknobs.emit:
         print("emitFilter ignored: filter emission needs backend = tpu",
               file=sys.stderr)
+        emit_filter = False
+
+    query_server = None
+
+    def refresh_serve_filter() -> None:
+        """Re-arm the query plane's filter tier from the live capture
+        on the cadence the artifact is emitted (checkpoint time): the
+        tier tracks the durable artifact, and between refreshes its
+        registry-snapshot guard forwards anything newer to the table."""
+        if query_server is not None and query_server.oracle.filter_first:
+            try:
+                query_server.oracle.refresh_filter()
+            except Exception as err:
+                # The run goes on: the tier keeps its last build and
+                # the table answers what it cannot.
+                print(f"filter tier refresh failed: "
+                      f"{type(err).__name__}: {err}", file=sys.stderr)
 
     checkpoint_hook = None
     if model is not None and config.agg_state_path:
@@ -264,6 +286,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
         # a crash must never leave the cursor ahead of aggregate state.
         def checkpoint_hook():
             sink.checkpointed_save(model.save)
+            refresh_serve_filter()
     engine = LogSyncEngine(
         sink,
         database,
@@ -293,7 +316,6 @@ def main(argv: list[str] | None = None, device=None) -> int:
     # Query plane: the batched membership-oracle JSON API over the live
     # aggregator. Device backend only: the per-entry database path has
     # no dedup table to serve.
-    query_server = None
     if config.query_port and model is not None:
         from ct_mapreduce_tpu_torch.serve.server import QueryServer
 
@@ -302,11 +324,20 @@ def main(argv: list[str] | None = None, device=None) -> int:
                 model.aggregator, config.query_port,
                 device=config.serve_device,
                 replicas=config.serve_replicas,
-                cache_size=config.serve_cache_size).start()
+                cache_size=config.serve_cache_size,
+                # emitFilter also arms the filter-first tier and the
+                # /filter routes (CTMR_SERVE_FILTER_FIRST can still
+                # force either way).
+                filter_first=(True if emit_filter else None),
+                filter_fp_rate=fknobs.fp_rate,
+                distrib_history=config.distrib_history,
+                max_delta_chain=config.max_delta_chain).start()
             # A breach of the SLO rules flips /healthz to 503.
             query_server.slo_check = slo_breaches
             print(f"query endpoint: :{query_server.port}/query "
-                  f"+ /issuer + /getcert", file=sys.stderr)
+                  f"+ /issuer + /getcert + /filter "
+                  f"(+ /filter/delta + /filter/container + "
+                  f"/filter/manifest)", file=sys.stderr)
         except OSError as err:
             print(f"query endpoint disabled: {err}", file=sys.stderr)
             query_server = None
@@ -368,6 +399,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
             if model is not None:
                 run_stage["stage"] = "saving"
                 model.save()
+                refresh_serve_filter()
             run_stage["stage"] = "idle"
             # Drain this round's errors so runForever doesn't re-print
             # (or unboundedly accumulate) them across polls.

@@ -7,6 +7,12 @@ aggregate checkpoints (a port of ``ct_mapreduce_tpu.cmd.ct_filter``).
     ct-filter-torch inspect -artifact run.filter [-json]
     ct-filter-torch query -artifact run.filter -issuer <issuerID> \\
               -expDate 2031-06-15-14 -serial 4d0000002a [-serial ...]
+    ct-filter-torch delta -base e1.filter -target e2.filter \\
+              -out e1-e2.delta [-fromEpoch 1 -toEpoch 2]
+    ct-filter-torch apply -base e1.filter -delta e1-e2.delta \\
+              [-delta ...] -out replayed.filter
+    ct-filter-torch container -artifact run.filter -kind mlbf|clubcard \\
+              -out run.mlbf
 
 ``build`` folds one or many checkpoints (comma list and globs, the
 ``aggStatePath`` spelling) through the port's merge (:mod:`..agg.merge`)
@@ -17,8 +23,13 @@ with ``emitFilter`` off carry no serial bytes for their device lanes and
 are refused unless ``-allowPartial`` accepts a filter over the capturing
 subset. ``-format`` picks ``fl02`` (the default) or ``fl01``.
 
-``delta``, ``apply`` and ``container`` belong to the distribution plane,
-ROADMAP item 15, and exit with an error naming it.
+``delta`` computes the stash/diff between two epochs' artifacts
+(``CTMRDL01`` or ``CTMRDL02``, following the endpoints' format; mixed
+endpoints are refused); ``apply`` replays one or more delta links
+(bundles split automatically) and writes bytes equal to the full build
+or exits 2; ``container`` re-encodes an artifact as an ``mlbf`` or
+``clubcard`` container. The three are host code (:mod:`..distrib`) and
+write the JAX package's bytes.
 
 Exit status: ``build``/``inspect`` 0 on success; ``query`` 0 when every
 serial is known, 1 when any is unknown; 2 on usage and format errors.
@@ -119,7 +130,62 @@ def _query(args, out) -> int:
     return 0 if all_known else 1
 
 
-_PLANE = ("delta", "apply", "container")
+def _delta(args, out) -> int:
+    from ct_mapreduce_tpu_torch.distrib import compute_delta
+    from ct_mapreduce_tpu_torch.filter import write_artifact
+
+    with open(args.base, "rb") as fh:
+        base = fh.read()
+    with open(args.target, "rb") as fh:
+        target = fh.read()
+    blob = compute_delta(base, target, args.fromEpoch, args.toEpoch)
+    write_artifact(args.out, blob)
+    print(json.dumps({
+        "out": args.out, "bytes": len(blob),
+        "fromEpoch": args.fromEpoch, "toEpoch": args.toEpoch,
+        "baseBytes": len(base), "targetBytes": len(target),
+        "ratio": round(len(blob) / max(1, len(target)), 4),
+    }, indent=2), file=out)
+    return 0
+
+
+def _apply(args, out) -> int:
+    from ct_mapreduce_tpu_torch.distrib import (
+        DeltaError,
+        apply_chain,
+        split_bundle,
+    )
+    from ct_mapreduce_tpu_torch.filter import write_artifact
+
+    with open(args.base, "rb") as fh:
+        blob = fh.read()
+    links = []
+    for path in args.delta:
+        with open(path, "rb") as fh:
+            links.extend(split_bundle(fh.read()))
+    try:
+        result = apply_chain(blob, links)
+    except DeltaError as err:
+        print(f"error: {err}", file=sys.stderr)
+        return 2
+    write_artifact(args.out, result)
+    print(json.dumps({"out": args.out, "bytes": len(result),
+                      "links": len(links)}, indent=2), file=out)
+    return 0
+
+
+def _container(args, out) -> int:
+    from ct_mapreduce_tpu_torch.distrib import encode_container
+    from ct_mapreduce_tpu_torch.filter import read_artifact, write_artifact
+
+    art = read_artifact(args.artifact)
+    blob = encode_container(art, args.kind)
+    write_artifact(args.out, blob)
+    print(json.dumps({
+        "out": args.out, "kind": args.kind, "bytes": len(blob),
+        "serials": art.n_serials, "groups": len(art.groups),
+    }, indent=2), file=out)
+    return 0
 
 
 def main(argv: list[str] | None = None, out=None, device=None) -> int:
@@ -130,11 +196,6 @@ def main(argv: list[str] | None = None, out=None, device=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     argv, flag_device = _pop_device(argv)
     device = device or flag_device or None
-    if argv and argv[0] in _PLANE:
-        print(f"error: ct-filter {argv[0]} is the filter distribution "
-              "plane, not ported yet (ROADMAP.md queue 1 item 15)",
-              file=sys.stderr)
-        return 2
     parser = argparse.ArgumentParser(prog="ct-filter-torch")
     sub = parser.add_subparsers(dest="cmd")
 
@@ -168,6 +229,31 @@ def main(argv: list[str] | None = None, out=None, device=None) -> int:
     q.add_argument("-serial", "--serial", action="append", default=[],
                    help="serial content bytes as hex (repeatable)")
 
+    d = sub.add_parser("delta",
+                       help="CTMRDL01/CTMRDL02 diff between epochs "
+                            "(magic follows the artifacts' format)")
+    d.add_argument("-base", "--base", required=True,
+                   help="the from-epoch full artifact")
+    d.add_argument("-target", "--target", required=True,
+                   help="the to-epoch full artifact")
+    d.add_argument("-out", "--out", required=True)
+    d.add_argument("-fromEpoch", "--fromEpoch", type=int, default=0)
+    d.add_argument("-toEpoch", "--toEpoch", type=int, default=1)
+
+    a = sub.add_parser("apply", help="replay delta link(s) onto a base")
+    a.add_argument("-base", "--base", required=True)
+    a.add_argument("-delta", "--delta", action="append", default=[],
+                   required=True,
+                   help="delta link or bundle (repeatable, in order)")
+    a.add_argument("-out", "--out", required=True)
+
+    c = sub.add_parser("container",
+                       help="re-encode as an upstream container")
+    c.add_argument("-artifact", "--artifact", required=True)
+    c.add_argument("-kind", "--kind", required=True,
+                   choices=("mlbf", "clubcard"))
+    c.add_argument("-out", "--out", required=True)
+
     args = parser.parse_args(argv)
     out = out or sys.stdout
     if args.cmd == "build":
@@ -184,6 +270,14 @@ def main(argv: list[str] | None = None, out=None, device=None) -> int:
             return 2
         try:
             return _query(args, out)
+        except (OSError, ValueError) as err:
+            print(f"error: {err}", file=sys.stderr)
+            return 2
+    if args.cmd in ("delta", "apply", "container"):
+        handler = {"delta": _delta, "apply": _apply,
+                   "container": _container}[args.cmd]
+        try:
+            return handler(args, out)
         except (OSError, ValueError) as err:
             print(f"error: {err}", file=sys.stderr)
             return 2

@@ -470,6 +470,22 @@ def walk(data: torch.Tensor, length: torch.Tensor, scan_issuer_cn: bool,
     raise ValueError(f"no walker for device {data.device}")
 
 
+def parse_certs(data: torch.Tensor, length: torch.Tensor,
+                scan_issuer_cn: bool = True) -> ParsedCerts:
+    """The JAX package's ``parse_certs``: map-stage fields of a batch of
+    DER certificates, ``data`` uint8[B, L] zero-padded and ``length``
+    int32[B], both on one device. The walk runs on that device through
+    :func:`walk`: K3 on a CUDA tensor, the plain walker on a CPU one.
+    Lanes with ``ok`` False must be re-parsed on the host."""
+    data = data.to(torch.uint8)
+    length = length.to(torch.int32)
+    if data.dim() != 2 or data.shape[1] < 1:
+        raise ValueError(
+            f"data must be [B, L] with L >= 1, got {tuple(data.shape)}")
+    return walk(data.contiguous(), length.contiguous(),
+                scan_issuer_cn).parsed
+
+
 def footprint(data: torch.Tensor, length: torch.Tensor,
               scan_issuer_cn: bool, cn_window: int = 0,
               max_serial_bytes: int = 46):

@@ -20,6 +20,11 @@ Endpoints:
 - ``GET /getcert?log=<url>&index=<n>`` — serving-plane proxy for the
   ``ct-getcert`` flow: the server fetches one entry and returns its
   PEM, so edge clients need no direct log access.
+- ``GET /filter``, ``/filter/manifest``, ``/filter/container/<kind>``,
+  ``/filter/delta/<from>/<to>`` and ``/filter/<issuer>/<expDate>`` —
+  the filter distribution routes (:meth:`QueryServer.handle_filter`),
+  served from the :class:`..distrib.FilterDistributor` the filter-first
+  tier publishes into.
 
 :class:`MembershipOracle` is independent of HTTP and composes the
 three serving primitives, hottest first:
@@ -28,13 +33,11 @@ three serving primitives, hottest first:
 :class:`~ct_mapreduce_tpu_torch.serve.snapshot.ReplicaPool` (device
 copies of the table on the aggregator's device, host fallback).
 ``serveReplicas`` / ``serveDevice`` / ``serveCacheSize`` directives
-(and their ``CTMR_SERVE_*`` env equivalents) tune the tier.
-
-Not ported yet: the filter-first tier and the ``/filter*`` distribution
-routes, which need the distribution plane (ROADMAP item 15; filter
-emission itself is ported, :mod:`..filter`). ``filter_first`` (or
-``CTMR_SERVE_FILTER_FIRST``) raises a ``ValueError`` naming it, and the
-routes answer 501.
+(and their ``CTMR_SERVE_*`` env equivalents) tune the tier. With
+``filter_first`` (or ``CTMR_SERVE_FILTER_FIRST``) a :class:`FilterTier`
+sits between the cache and the batcher: a filter cascade built from the
+aggregator's capture on its device (K1 and K5 on the card) answers
+negatives without a table view and forwards positives.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+
+import numpy as np
 
 from ct_mapreduce_tpu_torch.config import profile as platprofile
 from ct_mapreduce_tpu_torch.core.types import ExpDate
@@ -60,9 +65,6 @@ from ct_mapreduce_tpu_torch.telemetry import trace
 from ct_mapreduce_tpu_torch.telemetry.metrics import incr_counter
 
 _log = logging.getLogger(__name__)
-
-_FILTER_UNPORTED = ("the filter-first tier and the /filter routes are not "
-                    "ported yet (ROADMAP.md queue 1 item 15)")
 
 
 _SERVE_KNOBS = (
@@ -105,14 +107,81 @@ def resolve_filter_first(flag=None) -> bool:
         in ("1", "t", "true")
 
 
+class FilterTier:
+    """An epoch-tagged filter-cascade snapshot in front of the table
+    tier: compiled from the aggregator's filter capture, it answers
+    NEGATIVE lookups without touching a table view (exact for every
+    serial the build-time state knew) and forwards positives to the
+    table-confirm tier, which kills the cascade's false positives.
+    Serials first seen AFTER the build answer through the same
+    epoch/staleness surface the replica pool reports: the tier's epoch
+    is the pool's floor epoch at build time."""
+
+    def __init__(self, artifact, issuer_ids: list[str], epoch: int,
+                 device=None):
+        self.artifact = artifact
+        # Registry snapshot: run-local issuer index → issuerID, as of
+        # the build. Queries for indices past this snapshot (issuers
+        # first seen after the build) must FORWARD to the table, not
+        # answer negative from a filter that predates them.
+        self.issuer_ids = issuer_ids
+        self.epoch = int(epoch)
+        self.device = device
+        self.created_wall = time.time()
+
+    @classmethod
+    def build(cls, agg, fp_rate: float, epoch: int,
+              cache=None) -> "FilterTier":
+        """Compile the tier on the aggregator's device (K1 and K5 on the
+        card). ``cache`` (a :class:`..filter.GroupBuildCache`) arms the
+        CTMRFL02 dirty-group path: across refresh ticks only churned
+        groups rebuild (the oracle owns one cache for its lifetime)."""
+        from ct_mapreduce_tpu_torch.filter import build_from_aggregator
+
+        art = build_from_aggregator(agg, fp_rate=fp_rate, cache=cache)
+        ids = [agg.registry.issuer_at(i).id()
+               for i in range(len(agg.registry))]
+        return cls(art, ids, epoch, device=getattr(agg, "device", None))
+
+    def age_s(self) -> float:
+        return max(0.0, time.time() - self.created_wall)
+
+    def negatives(self, items: list) -> np.ndarray:
+        """bool[n]: lanes the cascade answers *excluded* — definitely
+        unknown as of the build. False means forward to the table
+        (cascade-positive, or outside the build's registry snapshot)."""
+        n = len(items)
+        out = np.zeros((n,), bool)
+        by_group: dict = {}
+        for i, (idx, eh, _sb) in enumerate(items):
+            if 0 <= int(idx) < len(self.issuer_ids):
+                key = (self.issuer_ids[int(idx)], int(eh))
+                by_group.setdefault(key, []).append(i)
+            # idx == -1 (registry never saw the issuer): the TABLE is
+            # the authority on honest-false; forward.
+        with trace.span("serve.filter", cat="serve", lanes=n):
+            for (iss, eh), lanes in by_group.items():
+                g = self.artifact.group_for(iss, eh)
+                if g is None:
+                    # No serials for this (issuer, expDate) at build
+                    # time: exact-negative for the build corpus.
+                    out[lanes] = True
+                    continue
+                hit = self.artifact.query_group(
+                    g, [items[i][2] for i in lanes], device=self.device)
+                out[np.asarray(lanes)[~hit]] = True
+        return out
+
+
 class MembershipOracle:
     """Batched "is serial S known for (issuer, expDate)?" over a live
     aggregator: a hot-serial result cache in front of dynamic batching
     in front of a round-robin pool of epoch-pinned device replicas
     (host-NumPy fallback when a CPU view cannot pin, or the card is out
-    of memory at pin time). The JAX module's
-    filter-first tier (``filter_first``) is not ported: asking for it
-    raises a ``ValueError`` naming ROADMAP item 15."""
+    of memory at pin time). With ``filter_first``, a filter-cascade
+    tier sits between the cache and the batcher: cascade-negative lanes
+    answer without a table view, cascade-positive lanes fall through for
+    table confirmation."""
 
     def __init__(
         self,
@@ -125,9 +194,10 @@ class MembershipOracle:
         replicas: int = 0,
         cache_size: int = 0,
         filter_first: Optional[bool] = None,
+        filter_fp_rate: float = 0.0,
+        distrib_history: int = 0,
+        max_delta_chain: int = 0,
     ) -> None:
-        if resolve_filter_first(filter_first):
-            raise ValueError(_FILTER_UNPORTED)
         self._agg = agg
         replicas, device, cache_size = resolve_serve(
             replicas, device, cache_size)
@@ -139,6 +209,84 @@ class MembershipOracle:
         self.batcher = MicroBatcher(
             self._run_batch, max_batch=max_batch, max_delay_s=max_delay_s,
             max_queue_lanes=max_queue_lanes)
+        # Filter-first tier: built on the first refresh (construction
+        # must not fail when the aggregator has no capture yet — the
+        # tier stays cold and every lane takes the table path).
+        from ct_mapreduce_tpu_torch.filter import (
+            DEFAULT_FP_RATE,
+            GroupBuildCache,
+        )
+
+        self.filter_first = resolve_filter_first(filter_first)
+        self.filter_fp_rate = float(filter_fp_rate) or DEFAULT_FP_RATE
+        self.filter_tier: Optional[FilterTier] = None
+        # Epoch-persistent build cache (CTMRFL02): refresh ticks reuse
+        # clean groups' cascades verbatim, so the steady-state refresh
+        # costs O(churn). Harmless for fl01 (an fl01 build ignores it).
+        self.filter_build_cache = GroupBuildCache()
+        # Distribution store: published epochs, delta links,
+        # containers, pre-compressed variants — what the /filter*
+        # routes serve. Armed alongside the filter tier.
+        self.distributor = None
+        if self.filter_first:
+            from ct_mapreduce_tpu_torch.distrib import (
+                FilterDistributor,
+                resolve_distrib,
+            )
+
+            history, max_chain = resolve_distrib(
+                distrib_history, max_delta_chain)
+            self.distributor = FilterDistributor(
+                history=history, max_chain=max_chain)
+        if self.filter_first and getattr(
+                agg, "filter_capture", None) is not None:
+            try:
+                self.refresh_filter()
+            except Exception as err:
+                # Serve must come up; refresh_filter can retry. The
+                # tier stays cold (stats() says so) and every lane
+                # takes the table path.
+                _log.warning("filter tier not armed: %s: %s",
+                             type(err).__name__, err)
+
+    def refresh_filter(self, fp_rate: float = 0.0) -> FilterTier:
+        """(Re)build the filter tier from the live aggregator's
+        capture, tagged with the replica pool's current floor epoch.
+        The rebuilt artifact also publishes into the distribution
+        store (source ``local`` — a fleet-fed merged artifact outranks
+        it). Raises ``ValueError`` when the aggregator has no
+        capture.
+
+        Unlike the JAX package's, a refresh never reuses the epoch it
+        published last: when no query has moved the replica pool past
+        that epoch since (a quiet plane), the pool captures fresh views
+        first, so the rebuilt artifact publishes under a new epoch
+        instead of being dropped as stale by the store."""
+        if self.distributor is not None:
+            latest = self.distributor.latest()
+            if latest is not None \
+                    and latest.epoch >= self.snapshots.floor_epoch():
+                for _ in range(self.snapshots.n_replicas):
+                    self.snapshots.refresh()
+        tier = FilterTier.build(
+            self._agg, float(fp_rate) or self.filter_fp_rate,
+            self.snapshots.floor_epoch(),
+            cache=self.filter_build_cache)
+        self.filter_tier = tier
+        if self.distributor is not None:
+            self.distributor.publish(
+                tier.epoch, tier.artifact.to_bytes(), source="local")
+        incr_counter("serve", "filter_refresh")
+        return tier
+
+    def publish_artifact(self, epoch: int, blob: bytes,
+                         source: str = "fleet") -> bool:
+        """Publish externally built artifact bytes (a fleet's merged
+        filter) into this worker's distribution store. Byte-identical
+        input on every worker ⇒ identical ETags/deltas/containers."""
+        if self.distributor is None:
+            return False
+        return self.distributor.publish(epoch, blob, source=source)
 
     def _run_batch(self, items: list) -> list:
         view = self.snapshots.view()
@@ -156,8 +304,10 @@ class MembershipOracle:
         """items: [(issuer_idx, exp_hour, serial_bytes)] →
         [(known, epoch, staleness_s)]. Cache hits answer immediately
         (valid while their epoch >= the pool's floor, as if the
-        round-robin had picked the stalest replica); the rest batch
-        through the oracle, each sub-batch answered by ONE pinned
+        round-robin had picked the stalest replica); cache misses
+        consult the filter tier when armed (cascade-negative lanes
+        answer at the tier's epoch, no table view touched); the rest
+        batch through the oracle, each sub-batch answered by ONE pinned
         view."""
         n = len(items)
         out: list = [None] * n
@@ -180,6 +330,25 @@ class MembershipOracle:
             if not miss:
                 return out
             incr_counter("serve", "cache_miss", value=float(len(miss)))
+        tier = self.filter_tier if self.filter_first else None
+        if tier is not None and miss:
+            neg = tier.negatives([items[i] for i in miss])
+            age = tier.age_s()
+            fwd = []
+            for j, i in enumerate(miss):
+                if neg[j]:
+                    out[i] = (False, tier.epoch, age)
+                else:
+                    fwd.append(i)
+            if len(miss) - len(fwd):
+                incr_counter("serve", "filter_negative",
+                             value=float(len(miss) - len(fwd)))
+            if fwd:
+                incr_counter("serve", "filter_forward",
+                             value=float(len(fwd)))
+            miss = fwd
+        if not miss:
+            return out
         res = self.batcher.submit([items[i] for i in miss],
                                   timeout_s=timeout_s)
         done = time.time()
@@ -212,7 +381,15 @@ class MembershipOracle:
         body.update(self.snapshots.stats())
         if self.cache is not None:
             body.update(self.cache.stats())
-        body["filter_first"] = False
+        body["filter_first"] = bool(self.filter_first)
+        if self.filter_tier is not None:
+            body["filter_epoch"] = self.filter_tier.epoch
+            body["filter_staleness_s"] = round(self.filter_tier.age_s(), 6)
+            body["filter_serials"] = self.filter_tier.artifact.n_serials
+            body["filter_format"] = self.filter_tier.artifact.fmt
+            body["filter_groups_reused"] = self.filter_build_cache.hits
+        if self.distributor is not None:
+            body.update(self.distributor.stats())
         return body
 
     def close(self) -> None:
@@ -258,7 +435,10 @@ class QueryServer:
                  max_staleness_s: float = 1.0,
                  device: Optional[bool] = None, replicas: int = 0,
                  cache_size: int = 0, transport=None,
-                 filter_first: Optional[bool] = None) -> None:
+                 filter_first: Optional[bool] = None,
+                 filter_fp_rate: float = 0.0,
+                 distrib_history: int = 0,
+                 max_delta_chain: int = 0) -> None:
         self.host = host
         self.port = int(port)
         self.oracle = MembershipOracle(
@@ -266,7 +446,9 @@ class QueryServer:
             max_queue_lanes=max_queue_lanes,
             max_staleness_s=max_staleness_s, device=device,
             replicas=replicas, cache_size=cache_size,
-            filter_first=filter_first)
+            filter_first=filter_first, filter_fp_rate=filter_fp_rate,
+            distrib_history=distrib_history,
+            max_delta_chain=max_delta_chain)
         self._transport = transport
         # Optional SLO probe: a callable returning the
         # current breach-reason list; non-empty flips /healthz to 503.
@@ -315,12 +497,140 @@ class QueryServer:
             return 404, {"error": "unknown issuer", "issuer": issuer_id}
         return 200, meta
 
+    # Cache policies per distribution resource: "latest"-shaped
+    # resources move every epoch, epoch-pinned resources never change.
+    _CC_LATEST = "public, max-age=60, must-revalidate"
+    _CC_IMMUTABLE = "public, max-age=31536000, immutable"
+
+    def _blob_response(self, blob: bytes, etag: str, req_headers,
+                       cache_control: str, cache_key=None,
+                       created_wall: Optional[float] = None,
+                       epoch: Optional[int] = None):
+        """One distribution payload: strong-ETag conditional GET
+        (If-None-Match ⇒ 304 with zero body bytes), Accept-Encoding
+        negotiation against the pre-compressed cache, and per-artifact
+        cache headers."""
+        from email.utils import formatdate
+
+        headers = {"ETag": etag, "Cache-Control": cache_control,
+                   "Vary": "Accept-Encoding"}
+        if created_wall is not None:
+            headers["Last-Modified"] = formatdate(created_wall,
+                                                  usegmt=True)
+        if epoch is not None:
+            headers["X-Filter-Epoch"] = str(epoch)
+        inm = (req_headers.get("If-None-Match", "")
+               if req_headers else "")
+        if inm and (inm.strip() == "*"
+                    or etag in [t.strip() for t in inm.split(",")]):
+            incr_counter("distrib", "http_304")
+            return 304, b"", headers
+        distributor = self.oracle.distributor
+        if req_headers is not None and distributor is not None:
+            from ct_mapreduce_tpu_torch.distrib import negotiate_encoding
+
+            enc = negotiate_encoding(
+                req_headers.get("Accept-Encoding", ""))
+            if enc:
+                payload = distributor.encoded(cache_key, blob, enc)
+                headers["Content-Encoding"] = enc
+                incr_counter("distrib", "bytes_sent",
+                             value=float(len(payload)))
+                return 200, payload, headers
+        incr_counter("distrib", "bytes_sent", value=float(len(blob)))
+        return 200, blob, headers
+
     def handle_filter(self, rest: str, req_headers=None):
-        """The filter distribution routes (``/filter``,
-        ``/filter/manifest``, ``/filter/container/<kind>``,
-        ``/filter/delta/<from>/<to>``, ``/filter/<issuer>/<expDate>``)
-        answer 501 until the distribution plane (item 15) is ported."""
-        return 501, {"error": _FILTER_UNPORTED}
+        """The distribution surface:
+
+        - ``GET /filter`` — the latest full artifact;
+        - ``GET /filter/manifest`` — the chain manifest JSON (latest
+          epoch + hash, delta links with per-link SHA-256, anchors);
+        - ``GET /filter/container/<kind>`` — the latest artifact in an
+          upstream container encoding (``mlbf`` | ``clubcard``);
+        - ``GET /filter/delta/<from>/<to>`` — the concatenated delta
+          links replaying epoch *from* to *to* (404 ⇒ no contiguous
+          chain: full-pull);
+        - ``GET /filter/<issuer>/<expDate>`` — a standalone
+          single-group artifact slice.
+
+        Every binary answer carries a strong ETag (SHA-256 of the
+        deterministic bytes), honors ``If-None-Match`` with 304,
+        negotiates gzip/zstd via ``Accept-Encoding``, and sets
+        per-artifact ``Cache-Control``/``Last-Modified``. 404 when the
+        tier is cold or the resource is unknown."""
+        from ct_mapreduce_tpu_torch.distrib import publish as _pub
+
+        tier = self.oracle.filter_tier
+        distributor = self.oracle.distributor
+        latest = distributor.latest() if distributor is not None else None
+        if tier is None and latest is None:
+            return 404, {"error": "filter tier not armed "
+                                  "(emitFilter / refresh_filter)"}
+        parts = [p for p in rest.split("/") if p] if rest else []
+        if not parts:
+            incr_counter("distrib", "http_full")
+            if latest is not None:
+                return self._blob_response(
+                    latest.blob, latest.etag, req_headers,
+                    self._CC_LATEST, cache_key=("full", latest.epoch),
+                    created_wall=latest.created_wall,
+                    epoch=latest.epoch)
+            blob = tier.artifact.to_bytes()
+            return self._blob_response(blob, _pub.etag_of(blob),
+                                       req_headers, self._CC_LATEST,
+                                       epoch=tier.epoch)
+        if parts[0] == "manifest":
+            if distributor is None:
+                return 404, {"error": "distribution store not armed"}
+            incr_counter("distrib", "http_manifest")
+            return 200, distributor.manifest()
+        if parts[0] == "container":
+            if latest is None:
+                return 404, {"error": "no published artifact"}
+            if len(parts) != 2 or parts[1] not in latest.containers:
+                return 404, {"error": "unknown container kind",
+                             "kinds": sorted(latest.containers)}
+            incr_counter("distrib", "http_container")
+            return self._blob_response(
+                latest.containers[parts[1]],
+                latest.container_etags[parts[1]], req_headers,
+                self._CC_LATEST,
+                cache_key=("container", latest.epoch, parts[1]),
+                created_wall=latest.created_wall, epoch=latest.epoch)
+        if parts[0] == "delta":
+            if distributor is None:
+                return 404, {"error": "distribution store not armed"}
+            if len(parts) != 3:
+                return 400, {"error": "use /filter/delta/<from>/<to>"}
+            try:
+                from_e, to_e = int(parts[1]), int(parts[2])
+            except ValueError:
+                return 400, {"error": "delta epochs must be integers"}
+            bundle = distributor.delta_bundle(from_e, to_e)
+            if bundle is None:
+                return 404, {"error": "no delta chain",
+                             "fromEpoch": from_e, "toEpoch": to_e,
+                             "hint": "full-pull /filter"}
+            incr_counter("distrib", "http_delta")
+            return self._blob_response(
+                bundle, _pub.etag_of(bundle), req_headers,
+                self._CC_IMMUTABLE, cache_key=("delta", from_e, to_e),
+                epoch=to_e)
+        if len(parts) != 2:
+            return 400, {"error": "use /filter/<issuer>/<expDate>"}
+        if tier is not None:
+            art = tier.artifact
+        else:
+            from ct_mapreduce_tpu_torch.filter import FilterArtifact
+
+            art = FilterArtifact.from_bytes(latest.blob)
+        blob = art.group_bytes(parts[0], parts[1])
+        if blob is None:
+            return 404, {"error": "no filter group",
+                         "issuer": parts[0], "expDate": parts[1]}
+        return self._blob_response(blob, _pub.etag_of(blob),
+                                   req_headers, self._CC_LATEST)
 
     def handle_healthz(self) -> tuple[int, dict]:
         from ct_mapreduce_tpu_torch.telemetry.metrics import get_sink

@@ -727,7 +727,8 @@ def test_ct_filter_clis_match_jax(tmp_path, monkeypatch, capsys):
     """Both ct-filter CLIs over the port's emitFilter checkpoint: build
     writes the same bytes (those ct-fetch emitted), inspect and query
     print the same text with the same exit codes (0 all known, 1 any
-    unknown, 2 on a usage error); the port's delta names item 15."""
+    unknown, 2 on a usage error); ``delta``, ``apply`` and ``container``
+    over two builds write the same files and print the same text."""
     from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
     from ct_mapreduce_tpu_torch.core.types import ExpDate
 
@@ -760,9 +761,29 @@ def test_ct_filter_clis_match_jax(tmp_path, monkeypatch, capsys):
     assert outs["port"] == outs["jax"]
     assert [rc for rc, _ in outs["port"]] == [0, 0, 0, 1, 2, 2]
     assert json.loads(outs["port"][1][1])["groups"] == 2
-    from ct_mapreduce_tpu_torch.cmd import ct_filter as tfilter
-
-    capsys.readouterr()
-    assert tfilter.main(["delta", "-base", "a", "-target", "b",
-                         "-out", "c"]) == 2
-    assert "item 15" in capsys.readouterr().err
+    plane = {}
+    for pkg in ("jax", "port"):
+        d = tmp_path / f"{pkg}-plane"
+        d.mkdir()
+        base, target = str(tmp_path / "jax.filter"), str(d / "t.filter")
+        rc, _ = _filter_cli(pkg, ["build", "-state", state, "-out", target,
+                                  "-fpRate", "0.05"], capsys)
+        assert rc == 0
+        runs = [["delta", "-base", base, "-target", target,
+                 "-out", str(d / "d.delta"), "-fromEpoch", "3",
+                 "-toEpoch", "4"],
+                ["apply", "-base", base, "-delta", str(d / "d.delta"),
+                 "-out", str(d / "r.filter")],
+                ["container", "-artifact", target, "-kind", "clubcard",
+                 "-out", str(d / "t.cc")],
+                ["delta", "-base", base, "-target", str(d / "nope"),
+                 "-out", str(d / "x.delta")]]
+        got = [(rc, text.replace(str(d), "<d>"))
+               for rc, text in (_filter_cli(pkg, argv, capsys)
+                                for argv in runs)]
+        got.append([(d / n).read_bytes()
+                    for n in ("d.delta", "r.filter", "t.cc")])
+        assert got[-1][1] == (d / "t.filter").read_bytes()
+        plane[pkg] = got
+    assert plane["port"] == plane["jax"]
+    assert [rc for rc, _ in plane["port"][:4]] == [0, 0, 0, 2]

@@ -472,9 +472,11 @@ def test_query_server_http_api(template):
             h = json.loads(resp.read())
         assert h["healthy"] and h["queue_cap"] > 0
         assert h["snapshot_epoch"] >= 1
-        # The filter routes are not ported yet: 501 naming their item.
+        # No filter-first tier on this server: the /filter routes answer
+        # 404, as the JAX package's do.
         code, body = _get_error(f"{base}/filter")
-        assert code == 501 and "item 15" in body["error"]
+        assert code == 404 and "not armed" in body["error"]
+        assert _get_error(f"{base}/filter/manifest")[0] == 404
         # A breach of the SLO hook flips /healthz to 503.
         srv.slo_check = lambda: ["serve_p99"]
         code, body = _get_error(f"{base}/healthz")
@@ -801,10 +803,21 @@ def test_resolve_serve_layering(monkeypatch):
         (3, True, 16)
     monkeypatch.setenv("CTMR_SERVE_REPLICAS", "banana")
     assert resolve_serve()[0] == 2
-    # The filter-first tier is not ported: asking for it raises.
+    # The env arms the filter-first tier and its distribution store
+    # (cold until the aggregator has a capture); the explicit flag wins.
     monkeypatch.setenv("CTMR_SERVE_FILTER_FIRST", "1")
-    with pytest.raises(ValueError, match="item 15"):
-        MembershipOracle(_agg(capacity=1 << 10))
+    oracle = MembershipOracle(_agg(capacity=1 << 10))
+    try:
+        assert oracle.filter_first and oracle.filter_tier is None
+        assert oracle.distributor is not None
+        assert oracle.stats()["filter_first"] is True
+    finally:
+        oracle.close()
+    oracle = MembershipOracle(_agg(capacity=1 << 10), filter_first=False)
+    try:
+        assert not oracle.filter_first and oracle.distributor is None
+    finally:
+        oracle.close()
 
 
 # -- parity with the JAX package's views ----------------------------------

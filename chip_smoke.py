@@ -186,14 +186,44 @@ Phases, none of them caught — any failure exits non-zero:
    ``ct-filter-torch inspect`` (a process); then ``classify_corpus`` on
    the card over the shard's DERs and 8,192 structured mutants: no
    verdict mismatch, buckets equal to the plain walker's on the same
-   corpus, the trend written to a temporary file.
+   corpus, the trend written to a temporary file;
+15. the sharded dedup, the ingest fleet and a global mesh: (a)
+   sharded-walker: walker-main's batches through ``IngestModel``
+   on a ``shard:4`` mesh (every visible card, or four shards over
+   cuda:0 with one card visible; the mesh and the exchange route are
+   printed), every batch's ``was_unknown`` equal to phase 5's and the
+   oracle's, the drain to the oracle's, ``dispatch_spill`` and K1/K3
+   launches printed, one step's K7 (dispatch, exchange, shard inserts,
+   return) replayed on copies of the shard tables and timed beside its
+   byte bound; (b) sharded-preparsed: the first 2 batches through the
+   pre-parsed lane on a fresh mesh, its drain equal to (a)'s after them;
+   (c) sharded-ckpt: (a)'s table as ck01 and as a ck02 base, each loaded
+   into a one-device aggregator and a ``shard:2`` mesh and reported by
+   storage-statistics, and phase 9's ck01 loaded into a 4-shard mesh,
+   every drain and report equal to its source's; (d) sharded-serve: a
+   ``QueryServer`` over (a)'s sharded views answers the smoke mix as the
+   oracle does, each replica's shard blocks pinned on their shards'
+   cards; (e) fleet-fetch: two ``ct-fetch-torch`` processes on the card
+   (``numWorkers`` 2, ``coordinatorBackend = redis`` against a
+   ``MiniRedis`` on 127.0.0.1, ``checkpointPeriod``, ``emitFilter``)
+   over two logs of another seed (the partition), then over one of them
+   (its stripes): both workers' merged report equals a serial ct-fetch
+   over the same logs and the oracle, and the leader's merged fleet
+   filter build over the final checkpoints answers every logged serial;
+   (f) global-mesh: two processes join through ``initialize_multihost``
+   and take one ``ShardedDedup`` step of 2^18 lanes each on a 2-shard
+   global mesh (NCCL with two or more cards, else gloo through host
+   memory, as the line says), drain and verdicts equal to a one-process
+   2-shard mesh's on the same lanes.
 
 The kernels' launch counts are set to 0 just before each main path
 (walker, pre-parsed, both lanes on the open table, probe ladder, each
 sink configuration, each ct-fetch run, the served ct-fetch, the filter
 emission and fl01 build of 12 (a), the ct-fetch of 12 (b), the build of
 12 (c), 13 (a)'s sinks and 13 (b)'s ct-fetch, 14 (a)'s ct-fetch, 14 (b)'s
-tile-128 audit and its ``classify_corpus``) and read just after it. Prints the
+tile-128 audit and its ``classify_corpus``, 15 (a) and (b), each 15 (e)
+serial run and merged filter build, 15 (f)'s one-process step) and
+read just after it. Prints the
 card line, a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -223,7 +253,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 DISPATCH_OPS_PER_S = 132 * 128 * 1.98e9
 
 BATCH_LOG2 = 20  # batchSize 2^20, the JAX package's headline batch
-MAIN_BATCHES = 6  # enough for tableBits 21 (3,145,728 slots) to grow once
+# Enough for tableBits 21 (3,145,728 slots) to grow once, before the 4th
+# (cut from 6 to make room for phase 15 in the time limit).
+MAIN_BATCHES = 4
 TABLE_BITS = 21  # one below the shipped 22, which needs 10 batches
 BIG_TABLE_BITS = 26  # 2^22 buckets: 2 GiB of rows
 TIMED_REPS = 25  # CUDA-event timings per turn (two turns each)
@@ -1229,14 +1261,18 @@ def _oracle_snapshot(stream: Stream, seen):
 
 def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
               table_bits: int, replay: float, preparsed: bool,
-              drain_after: int = 0, keep: bool = False) -> dict:
+              drain_after: int = 0, keep: bool = False, mesh=None,
+              cost: bool = True, keep_wu: bool = False) -> dict:
     """One lane through ``IngestModel.ingest_packed`` over ``n_batches``
     of ``stream``, every batch and the drain held to the oracle, in the
-    table layout ``CTMR_TABLE`` selects. ``drain_after`` also keeps the
-    drain after that many batches (``drain_at``); ``keep`` keeps the
+    table layout ``CTMR_TABLE`` selects; over ``mesh`` (a
+    ``ShardedAggregator``) when one is given. ``drain_after`` also keeps
+    the drain after that many batches (``drain_at``); ``keep`` keeps the
     model (``_model``) and the truth of everything it ingested, the
     insert-cost batch included (``_truth``: the stream and its seen
-    counters)."""
+    counters). ``cost`` replays one more step's insert (K2 or K8; K7 on
+    a mesh) apart from the timed batches; ``keep_wu`` keeps every
+    batch's ``was_unknown`` (``_wu``)."""
     import numpy as np
 
     from ct_mapreduce_tpu_torch.models.ingest_model import IngestModel
@@ -1244,11 +1280,12 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
 
     model = IngestModel.from_config(
         _config(batch_log2, table_bits, preparsed, stream.cn_prefixes()),
-        device=device)
+        mesh=mesh, device=device)
     agg = model.aggregator
     layout = ("open" if isinstance(agg.table, hashtable.TableState)
               else "bucket")
-    lane = ("preparsed" if preparsed else "walker") + (
+    lane = ("sharded-" if mesh is not None else "") + (
+        "preparsed" if preparsed else "walker") + (
         "-open" if layout == "open" else "")
     idx_of = stream.issuer_indices(model)
     cap0 = agg.capacity
@@ -1259,6 +1296,7 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
     inserts = InsertCount()
     reset_counts()
     drain_at = None
+    wus = []
     for i in range(n_batches):
         t0 = time.perf_counter()
         data, length, tof, ctr = stream.batch(n, replay)
@@ -1267,6 +1305,7 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
                                   np.ones((n,), bool))
         step_s.append(time.perf_counter() - t1)
         gen_s.append(t1 - t0)
+        wus.append(res.was_unknown)
         # Oracle: the first sighting of a (template, counter) among the
         # lanes that pass the filters is the one unknown lane.
         passing = ~stream.filtered[tof]
@@ -1290,7 +1329,8 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
           f"{lane}: the fingerprint kernel never ran on the main path")
     check(preparsed or launches["der_walk"] > 0,
           "walker: the walker kernel never ran on the main path")
-    check(agg.capacity > cap0, f"{lane}: no table grow on the main path")
+    check(agg.capacity > cap0 or not cost,
+          f"{lane}: no table grow on the main path")
 
     snap = model.drain()
     counts, crls, dns = _oracle_snapshot(stream, seen)
@@ -1312,11 +1352,17 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
         "metrics": dict(agg.metrics),
         "snapshot": snap,
     }
+    if keep_wu:
+        out["_wu"] = wus
     # After the drain's check, so the extra batch is in no oracle.
-    out["insert"] = dict(insert_cost(model, stream, idx_of, n, replay, lane),
-                         calls=insert_calls)
-    insert = out["insert"]
-    extra_ctr = insert.pop("_extra_ctr")
+    extra_ctr = np.zeros((0,), np.int64)
+    if cost:
+        fn = k7_cost if mesh is not None else insert_cost
+        out["insert"] = dict(fn(model, stream, idx_of, n, replay, lane),
+                             calls=insert_calls)
+        extra_ctr = out["insert"].pop("_extra_ctr")
+    insert = out.get("insert", {"calls": insert_calls, "ms": float("nan"),
+                                "bound_ms": float("nan")})
     if drain_after:
         out["drain_at"] = drain_at
     if keep:
@@ -1337,6 +1383,85 @@ def main_path(device, stream: Stream, n_batches: int, batch_log2: int,
           f"{insert['ms']:.2f} ms apart from them, bound "
           f"{insert['bound_ms']:.4f} ms (bytes)", flush=True)
     return out
+
+
+def k7_cost(model, stream: Stream, idx_of, n: int, replay: float,
+            lane: str) -> dict:
+    """One sharded step's K7 (dispatch, exchange, shard inserts, the
+    verdicts' way home and the counts' sum), apart from the timed
+    batches: one more batch goes through the lane with the step's
+    ``ShardedDedup.k7`` call captured, with copies of the shard tables
+    before it; the call is then replayed on fresh copies of those tables,
+    each replay timed with CUDA events and its verdicts and counts held
+    to the captured ones. ``_extra_ctr`` holds the extra batch's passing
+    counters.
+
+    Its byte bound: every lane's 5-word payload (4 fingerprint words and
+    the meta word) sent to its home shard and a verdict word returned, a
+    shard's distinct home rows read once and the rows its new keys fill
+    written once (512 B bucket rows; hops left out, so this bounds from
+    below), plus the insertable flag read a lane."""
+    import numpy as np
+    import torch
+
+    from ct_mapreduce_tpu_torch.agg import sharded
+    from ct_mapreduce_tpu_torch.ops import buckettable
+
+    cls = sharded.ShardedDedup
+    fn = cls.k7
+    captured = []
+
+    def run(self, lanes, cap, tables=None):
+        # The step may grow the table first: capture on whichever
+        # dedup the step runs.
+        if captured or tables is not None:
+            return fn(self, lanes, cap, tables)
+        before = self.clone_tables()
+        res, counts = fn(self, lanes, cap)
+        captured.append((self, before, lanes, cap, res, counts))
+        return res, counts
+
+    cls.k7 = run
+    try:
+        data, length, tof, ctr = stream.batch(n, replay)
+        model.ingest_packed(data, length, idx_of[tof], np.ones((n,), bool))
+    finally:
+        cls.k7 = fn
+    check(len(captured) == 1, f"{lane}: no K7 call on the step")
+    dedup, before, lanes, cap, res, counts = captured[0]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(TIMED_REPS):
+        tables = {s: type(t)(t.rows.clone(), t.count.clone())
+                  for s, t in before.items()}
+        torch.cuda.synchronize()
+        start.record()
+        got, got_counts = fn(dedup, lanes, cap, tables)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        check(all(torch.equal(got[s][i], res[s][i]) for s in res
+                  for i in range(3)) and torch.equal(got_counts, counts),
+              f"{lane}: a replayed K7 gave other verdicts")
+    lanes_n = sum(int(v[0].shape[0]) for v in lanes.values())
+    read, written = [], []
+    nb = next(iter(before.values())).n_buckets
+    for s, (fps, _meta, ins) in lanes.items():
+        keys = buckettable._desentinel(fps)
+        home = (sharded._shard_of(keys, dedup.n_shards) * nb
+                + buckettable._home_bucket(keys, nb)).cpu()
+        read.append(home[ins.cpu()])
+        written.append(home[res[s][0].cpu()])
+    rows_read = int(torch.unique(torch.cat(read)).numel())
+    rows_written = int(torch.unique(torch.cat(written)).numel())
+    moved = ((rows_read + rows_written) * buckettable.ROW_WORDS * 4
+             + lanes_n * (20 + 4 + 1))
+    return {"ms": median(ms), "ms_min": min(ms), "ms_max": max(ms),
+            "cap": cap, "lanes": lanes_n, "rows_read": rows_read,
+            "rows_written": rows_written,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "_extra_ctr": ctr[~stream.filtered[tof]]}
 
 
 # -- phase 7: state at a deployment's scale ----------------------------
@@ -1457,7 +1582,8 @@ def wire_extra_data(stream: Stream) -> list[str]:
             .decode() for t in stream.templates]
 
 
-def sink_entries(stream: Stream, extra: list[str], n: int, replay: float):
+def sink_entries(stream: Stream, extra: list[str], n: int, replay: float,
+                 within_batch_only: bool = False):
     """``n`` of ``stream``'s lanes as a log serves them: the base64
     ``leaf_input`` (an RFC 6962 MerkleTreeLeaf holding the X.509 entry)
     and ``extra_data`` (``extra`` by template) of each. Returns (leaf
@@ -1466,7 +1592,7 @@ def sink_entries(stream: Stream, extra: list[str], n: int, replay: float):
 
     import numpy as np
 
-    data, length, tof, ctr = stream.batch(n, replay)
+    data, length, tof, ctr = stream.batch(n, replay, within_batch_only)
     # version, leaf type, timestamp (8 bytes: 1000 ms), entry type (2),
     # the certificate's 3-byte length.
     head = np.zeros((n, 15), np.uint8)
@@ -1680,6 +1806,11 @@ def checkpoints(device, staged_model, staged_drain, seed: int) -> dict:
           + "; loaded " + ", ".join(f"{k} in {v:.2f} s"
                                     for k, v in out["loads"].items())
           + "; every drain == the sink's", flush=True)
+    # Phase 15 (c) loads the ck01 onto a mesh.
+    keep = os.path.join(HERE, "build", "smoke_p15")
+    os.makedirs(keep, exist_ok=True)
+    out["_p9_path"] = os.path.join(keep, "phase9-ck01.npz")
+    os.replace(os.path.join(d, "staged-ck01.npz"), out["_p9_path"])
 
     stream = Stream(seed + 1, cn_filter=True)
     path = os.path.join(d, "model.npz")
@@ -1775,7 +1906,10 @@ def serve_logs(seed: int, conn) -> None:
     "grow" (``grow`` takes RESUME_ENTRIES[1] entries), "grow dist"
     (``dist`` takes SERVE_FETCH_ENTRIES, for phase 14), "starts" (the
     ``start`` of each get-entries request ``grow`` has answered since the
-    last ask) and "stop"."""
+    last ask) and "stop". Two more logs, ``fleet-a`` and ``fleet-b``
+    (FLEET_CHUNKS chunks), hold phase 15's fleet stream: another seed,
+    its replays within a chunk, so no serial is in two logs or two
+    stripes."""
     sys.path.insert(0, HERE)
     from ct_mapreduce_tpu_torch.utils.fakelog import FakeLog, LogServer
 
@@ -1795,9 +1929,21 @@ def serve_logs(seed: int, conn) -> None:
         part.add_raw(e["leaf_input"], e["extra_data"])
     for e in full.entries[:RESUME_ENTRIES[0]]:
         dist.add_raw(e["leaf_input"], e["extra_data"])
+    fstream = Stream(seed + FLEET_SEED, cn_filter=True)
+    fextra = wire_extra_data(fstream)
+    fleet = [FakeLog(url=f"https://ct.smoke.example/fleet-{c}")
+             for c in "ab"]
+    for log, chunks in zip(fleet, FLEET_CHUNKS):
+        for _ in range(chunks):
+            lis, eds, _, _ = sink_entries(fstream, fextra, FETCH_CHUNK,
+                                          SINK_REPLAY, within_batch_only=True)
+            for li, ed in zip(lis, eds):
+                log.add_raw(li, ed)
     with LogServer(full) as s_full, LogServer(grow) as s_grow, \
-            LogServer(part) as s_part, LogServer(dist) as s_dist:
-        conn.send((s_full.url, s_grow.url, s_part.url, s_dist.url))
+            LogServer(part) as s_part, LogServer(dist) as s_dist, \
+            LogServer(fleet[0]) as s_fa, LogServer(fleet[1]) as s_fb:
+        conn.send((s_full.url, s_grow.url, s_part.url, s_dist.url,
+                   s_fa.url, s_fb.url))
         while True:
             msg = conn.recv()
             if msg == "grow":
@@ -1830,8 +1976,9 @@ class LogProcess:
         self.proc.start()
         self.urls = None
 
-    def wait_ready(self) -> tuple[str, str, str, str]:
-        """The four logs' URLs, once the server has made them."""
+    def wait_ready(self) -> tuple[str, ...]:
+        """The logs' URLs (full, grow, part, dist, fleet-a, fleet-b),
+        once the server has made them."""
         if self.urls is None:
             check(self._conn.poll(900), "the log server never came up")
             self.urls = self._conn.recv()
@@ -2047,7 +2194,7 @@ def fetch_phase(device, logs: LogProcess, seed: int) -> dict:
 
     from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
 
-    full_url, grow_url, _part_url, _dist_url = logs.wait_ready()
+    full_url, grow_url = logs.wait_ready()[:2]
     stream, seen = fetch_oracle(seed, (RESUME_ENTRIES[0], RESUME_ENTRIES[1],
                                        SERVE_FETCH_ENTRIES, FETCH_ENTRIES))
     d = os.path.join(HERE, "build", "smoke_fetch")
@@ -4545,6 +4692,428 @@ def audit_shard(device, seed: int) -> dict:
     return out
 
 
+# -- phase 15: the sharded dedup, the fleet and a global mesh ------------
+
+MESH_SHARDS = 4  # (a)-(d): shard:4, every visible card or 4 over cuda:0
+MESH_BATCHES = MAIN_BATCHES  # (a): walker-main's batches, as phase 5
+FLEET_SEED = 15  # (e): the fleet stream's seed offset
+FLEET_CHUNKS = (2, 1)  # (e): FETCH_CHUNK chunks of fleet-a and fleet-b
+FLEET_PERIOD = "1s"  # (e): the workers' checkpointPeriod
+FLEET_TIMEOUT = 300  # (e), (f): seconds a child process may take
+GLOBAL_LANES = 1 << 18  # (f): lanes a process brings to the global mesh
+
+
+def phase15_mesh(n: int):
+    """A ``shard:n`` mesh over every visible card (n of them), or n
+    shards over cuda:0 when fewer are visible."""
+    import torch
+
+    from ct_mapreduce_tpu_torch.parallel import make_mesh
+
+    cards = torch.cuda.device_count()
+    devs = ([torch.device("cuda", i) for i in range(n)] if cards >= n
+            else [torch.device("cuda", 0)] * n)
+    return make_mesh(f"shard:{n}", devs)
+
+
+def sharded_walker(device, seed: int, walker_wu: list, bucket_at) -> dict:
+    """15 (a): walker-main's first MESH_BATCHES batches through
+    ``IngestModel`` on a MESH_SHARDS-shard mesh: every batch's
+    ``was_unknown`` == phase 5's and the oracle's, the drain == the
+    oracle's (and after OPEN_BATCHES == phase 5's), one step's K7
+    replayed beside its bound. Keeps the model and truth (``_model``,
+    ``_truth``) for (c) and (d)."""
+    import numpy as np
+
+    mesh = phase15_mesh(MESH_SHARDS)
+    out = main_path(device, Stream(seed, cn_filter=True), MESH_BATCHES,
+                    BATCH_LOG2, TABLE_BITS, 0.5, False,
+                    drain_after=OPEN_BATCHES, keep=True, mesh=mesh,
+                    keep_wu=True)
+    wu = out.pop("_wu")
+    for i, (got, want) in enumerate(zip(wu, walker_wu)):
+        check(np.array_equal(got, want),
+              f"15 (a): batch {i}'s was_unknown differs from phase 5's")
+    check(out.pop("drain_at") == bucket_at,
+          f"15 (a): the drain after {OPEN_BATCHES} batches differs from "
+          "phase 5's")
+    dedup = out["_model"].aggregator.dedup
+    out.update(mesh=[str(d) for d in mesh.devices.flat],
+               exchange=dedup.exchange_route(),
+               dispatch_spill=out["metrics"]["dispatch_spill"])
+    k7 = out["insert"]
+    print(f"phase 15 (a) sharded-walker: mesh {out['mesh']}, exchange by "
+          f"{out['exchange']}; every batch's was_unknown == phase 5's; "
+          f"dispatch_spill {out['dispatch_spill']}; K1 "
+          f"{out['launches']['sha256_fp']}, K3 {out['launches']['der_walk']} "
+          f"launches; K7 one step {k7['ms']:.2f} ms (cap {k7['cap']}), bound "
+          f"{k7['bound_ms']:.4f} ms (bytes)", flush=True)
+    return out
+
+
+def sharded_preparsed(device, seed: int, mesh_at) -> dict:
+    """15 (b): the first OPEN_BATCHES batches through the pre-parsed
+    lane on a fresh mesh (routed on the host): drain == (a)'s after the
+    same batches."""
+    out = main_path(device, Stream(seed, cn_filter=True), OPEN_BATCHES,
+                    BATCH_LOG2, TABLE_BITS, 0.5, True,
+                    mesh=phase15_mesh(MESH_SHARDS), cost=False)
+    check(out.pop("snapshot") == mesh_at,
+          "15 (b): the pre-parsed drain differs from (a)'s")
+    print(f"phase 15 (b) sharded-preparsed: {OPEN_BATCHES} batches, drain "
+          f"== (a)'s; K1 {out['launches']['sha256_fp']} launches",
+          flush=True)
+    return out
+
+
+def _tpu_report(spec: str):
+    """(JSON report without the log status, -v 1 text) of storage-
+    statistics over the checkpoints ``spec`` names, read on the CPU."""
+    import io
+
+    from ct_mapreduce_tpu_torch.cmd import storage_statistics
+    from ct_mapreduce_tpu_torch.config import CTConfig
+
+    cfg = CTConfig.load(argv=[], env={})
+    cfg.backend, cfg.agg_state_path = "tpu", spec
+    text = io.StringIO()
+    check(storage_statistics.report_from_tpu_snapshot(cfg, text, 1) == 0,
+          f"storage-statistics over {spec} failed")
+    rep = storage_statistics.collect_tpu_report(cfg)
+    return {k: rep[k] for k in ("issuers", "totals")}, text.getvalue()
+
+
+def sharded_ckpt(device, model, p9_path: str, p9_drain) -> dict:
+    """15 (c): (a)'s table saved as ck01 and as a ck02 base, each loaded
+    into a one-device aggregator and a shard:2 mesh, and reported by
+    storage-statistics; phase 9's one-device ck01 loaded into a
+    MESH_SHARDS-shard mesh. Every drain and report == the source's."""
+    from ct_mapreduce_tpu_torch.agg.aggregator import TorchAggregator
+    from ct_mapreduce_tpu_torch.agg.sharded_agg import ShardedAggregator
+
+    agg = model.aggregator
+    drain = model.drain()
+    d = os.path.join(HERE, "build", "smoke_p15")
+    os.makedirs(d, exist_ok=True)
+    out = {"saves": {}, "loads": {}}
+    reports = []
+    for mode in ("ck01", "ck02"):
+        path = os.path.join(d, f"mesh-{mode}.npz")
+        agg.configure_checkpointing(mode=mode)
+        t0 = time.perf_counter()
+        agg.save_checkpoint(path)
+        out["saves"][mode] = {"s": time.perf_counter() - t0,
+                              "bytes": os.path.getsize(path)}
+        for name, make in (
+                ("one", lambda: TorchAggregator(capacity=1 << 10,
+                                                device=device)),
+                ("shard2", lambda: ShardedAggregator(
+                    phase15_mesh(2), capacity=1 << 10))):
+            t0 = time.perf_counter()
+            r = make()
+            r.load_checkpoint(path)
+            out["loads"][f"{mode}@{name}"] = time.perf_counter() - t0
+            check(r.drain() == drain,
+                  f"15 (c): {mode} loaded into {name}: the drain differs")
+            del r
+        t0 = time.perf_counter()
+        reports.append(_tpu_report(path))
+        out["loads"][f"{mode}@report"] = time.perf_counter() - t0
+    check(reports[0] == reports[1],
+          "15 (c): the ck01 and ck02 reports differ")
+    check_report(reports[0][1], drain.counts, "15 (c) report")
+    t0 = time.perf_counter()
+    r = ShardedAggregator(phase15_mesh(MESH_SHARDS), capacity=1 << 10)
+    r.load_checkpoint(p9_path)
+    out["loads"]["phase9@shard4"] = time.perf_counter() - t0
+    check(r.drain() == p9_drain,
+          "15 (c): phase 9's checkpoint on the mesh drains differently")
+    del r
+    for f in os.listdir(d):
+        if os.path.isfile(os.path.join(d, f)):
+            os.unlink(os.path.join(d, f))
+    print("phase 15 (c) sharded-ckpt: (a)'s table saved " + ", ".join(
+        f"{m} {v['bytes']} B in {v['s']:.2f} s"
+        for m, v in out["saves"].items()) + "; loaded " + ", ".join(
+        f"{k} in {v:.2f} s" for k, v in out["loads"].items())
+        + "; every drain and report == the source's", flush=True)
+    return out
+
+
+def sharded_serve(device, agg, stream: Stream, truth, seed: int) -> dict:
+    """15 (d): a QueryServer over (a)'s sharded views answers the smoke
+    mix as the oracle does; each replica pins each shard's row block on
+    that shard's card."""
+    import numpy as np
+    import torch
+
+    from ct_mapreduce_tpu_torch.serve.server import QueryServer
+    from ct_mapreduce_tpu_torch.serve.snapshot import _concrete
+
+    queries, want, *_ = serve_queries(stream, truth, SERVE_QUERIES, seed)
+    srv = QueryServer(agg, 0, host="127.0.0.1", device=True,
+                      replicas=SERVE_REPLICAS, cache_size=SERVE_CACHE).start()
+    try:
+        pool = srv.oracle.snapshots.warm()
+        shard_devs = [_concrete(d) for d in agg.dedup.devices]
+        for v in pool._replicas:
+            check(v._dev_blocks is not None and v._dev_rows is None
+                  and v.pinned_devices == shard_devs
+                  and all(d.type == torch.device(device).type
+                          for d in v.pinned_devices),
+                  "15 (d): a replica's shard blocks are not pinned on their "
+                  "shards' cards")
+        got, post_s, wall, _ = _post_all(f"127.0.0.1:{srv.port}", queries,
+                                         SERVE_CLIENTS)
+        check(np.array_equal(got, want),
+              f"15 (d): {int((got != want).sum())} answers differ from the "
+              "oracle")
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    out = {"queries": SERVE_QUERIES, "wall_s": wall,
+           "queries_per_s": SERVE_QUERIES / wall,
+           "post_p50_ms": median(post_s) * 1e3,
+           "blocks": [str(d) for d in shard_devs]}
+    print(f"phase 15 (d) sharded-serve: {SERVE_QUERIES} queries, every "
+          f"answer == the oracle, {out['queries_per_s']:.0f} queries/s; each "
+          f"replica's {len(shard_devs)} blocks pinned on {out['blocks']}",
+          flush=True)
+    return out
+
+
+def fleet_oracle(seed: int):
+    """The fleet logs' truth: fleet-a's and fleet-b's stream regenerated
+    from the seed (the same calls as ``serve_logs``); per log the seen
+    counters. Returns (stream, [seen of fleet-a, seen of fleet-b])."""
+    import numpy as np
+
+    stream = Stream(seed + FLEET_SEED, cn_filter=True)
+    n = sum(FLEET_CHUNKS) * FETCH_CHUNK + 2
+    seen = []
+    for chunks in FLEET_CHUNKS:
+        s = np.zeros((n,), bool)
+        for _ in range(chunks):
+            _, _, tof, ctr = stream.batch(FETCH_CHUNK, SINK_REPLAY, True)
+            s[ctr[~stream.filtered[tof]]] = True
+        seen.append(s)
+    return stream, seen
+
+
+def _child_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    for k in ("MASTER_ADDR", "WORLD_SIZE", "CTMR_NUM_WORKERS",
+              "CTMR_WORKER_ID", "CTMR_COORDINATOR", "CTMR_CHECKPOINT_PERIOD"):
+        env.pop(k, None)
+    return env
+
+
+def _children(cmds: list) -> list[str]:
+    """Run ``cmds`` as processes at once; their outputs, each checked for
+    exit code 0 within FLEET_TIMEOUT (all killed past it)."""
+    procs = [subprocess.Popen([sys.executable, *c], cwd=HERE,
+                              env=_child_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=FLEET_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for c, p, o in zip(cmds, procs, outs):
+        check(p.returncode == 0,
+              f"{' '.join(c)}: exit code {p.returncode}\n{o[-3000:]}")
+    return outs
+
+
+def fleet_fetch(device, logs: LogProcess, seed: int) -> dict:
+    """15 (e): two ct-fetch-torch processes on the card, ``numWorkers``
+    2, ``coordinatorBackend = redis`` against a MiniRedis on 127.0.0.1,
+    ``checkpointPeriod`` and ``emitFilter``: round one over fleet-a and
+    fleet-b (the rendezvous partition), round two over fleet-a alone
+    (its entries in two stripes). Each round's storage-statistics over
+    both workers' states == a serial ct-fetch over the same logs == the
+    oracle. The fleet filter the leader leaves (folded on the card after
+    both workers' final saves) was built without error, equals a fresh
+    ``build_from_merged`` of the final states byte for byte, and answers
+    every logged serial."""
+    import re
+
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch.agg.merge import load_checkpoints
+    from ct_mapreduce_tpu_torch.cmd import ct_fetch
+    from ct_mapreduce_tpu_torch.filter.artifact import (
+        build_from_merged, read_artifact)
+    from ct_mapreduce_tpu_torch.utils.miniredis import MiniRedis
+
+    urls = logs.wait_ready()
+    stream, seen = fleet_oracle(seed)
+    out = {}
+    for rnd, picks in (("partition", (0, 1)), ("stripes", (0,))):
+        # Each round is a new fleet on a Redis of its own: on one Redis
+        # the first round's leader lease would outlive it (its renewal
+        # TTL), and the second round would start with no leader.
+        redis = MiniRedis().start()
+        try:
+            d = os.path.join(HERE, "build", "smoke_p15", rnd)
+            os.makedirs(d, exist_ok=True)
+            for f in os.listdir(d):
+                os.unlink(os.path.join(d, f))
+            log_list = ",".join(urls[4 + i] for i in picks)
+            inis = [_fetch_ini(
+                os.path.join(d, f"w{w}.ini"), log_list,
+                os.path.join(d, "agg.npz"), stream, {
+                    "numWorkers": 2, "workerId": w,
+                    "coordinatorBackend": "redis",
+                    "redisHost": redis.address,
+                    "checkpointPeriod": FLEET_PERIOD, "emitFilter": "true",
+                    "nobars": "true"}) for w in range(2)]
+            t0 = time.perf_counter()
+            texts = _children([["-m", "ct_mapreduce_tpu_torch.cmd.ct_fetch",
+                                "-config", ini] for ini in inis])
+            fleet_s = time.perf_counter() - t0
+            for w, text in enumerate(texts):
+                check(f"fleet worker {w}/2" in text
+                      and ", rejoined" not in text,
+                      f"15 (e) {rnd}: worker {w} ran no new fleet")
+            serial_ini = _fetch_ini(
+                os.path.join(d, "serial.ini"), log_list,
+                os.path.join(d, "serial.npz"), stream, {"nobars": "true"})
+            reset_counts()
+            t0 = time.perf_counter()
+            check(ct_fetch.main(["-config", serial_ini], device=device) == 0,
+                  f"15 (e) {rnd}: the serial ct-fetch failed")
+            serial_s = time.perf_counter() - t0
+            serial_launches = read_counts()
+            paths = [os.path.join(d, f"agg.w{w}.npz") for w in range(2)]
+            fleet_rep = _tpu_report(",".join(paths))
+            serial_rep = _tpu_report(os.path.join(d, "serial.npz"))
+            check(fleet_rep == serial_rep,
+                  f"15 (e) {rnd}: the workers' merged report differs from "
+                  "the serial run's")
+            want = np.zeros_like(seen[0])
+            for i in picks:
+                want |= seen[i]
+            counts, _crls, _dns = _oracle_snapshot(stream, want)
+            check_report(fleet_rep[1], counts, f"15 (e) {rnd}")
+            # The leader's fleet filter: its end-of-run build, after both
+            # workers' final saves.
+            for w, text in enumerate(texts):
+                check("fleet filter emission failed" not in text,
+                      f"15 (e) {rnd}: worker {w}'s fleet filter build "
+                      f"failed\n{text[-3000:]}")
+            folded = [m for t in texts for m in re.findall(
+                r"fleet filter: 2 worker snapshot\(s\) folded into \S+ on "
+                r"(\S+) \(K1 (\d+), K5 (\d+) launches\)", t)]
+            check(len(folded) == 1,
+                  f"15 (e) {rnd}: {len(folded)} leaders folded the final "
+                  "fleet filter (want 1)")
+            leader = os.path.join(d, "agg.npz.filter")
+            check(os.path.exists(leader),
+                  f"15 (e) {rnd}: the leader left no fleet filter")
+            art = read_artifact(leader)
+            reset_counts()
+            fresh = build_from_merged(load_checkpoints(paths),
+                                      allow_partial=True, device=device)
+            check_launches = read_counts()
+            check(art.to_bytes() == fresh.to_bytes(),
+                  f"15 (e) {rnd}: the leader's fleet filter differs from a "
+                  "fresh build of the final checkpoints")
+            ctr = np.nonzero(want)[0]
+            tof = stream.template_of[ctr]
+            ser, ln = stream.serial_bytes(tof, ctr)
+            miss = 0
+            for t in np.unique(tof):  # a template is one (issuer, hour)
+                sel = np.nonzero(tof == t)[0]
+                g = art.group_for(stream.truth[t]["issuer"],
+                                  stream.truth[t]["hour"])
+                miss += sel.size if g is None else int(
+                    (~art.query_group(g, [ser[i, : ln[i]].tobytes()
+                                          for i in sel],
+                                      device=device)).sum())
+            check(miss == 0, f"15 (e) {rnd}: the leader's fleet filter "
+                             f"misses {miss} logged serials")
+            on, k1, k5 = folded[0]
+            out[rnd] = {"logs": len(picks), "serials": int(want.sum()),
+                        "fleet_s": fleet_s, "serial_s": serial_s,
+                        "serial_launches": serial_launches,
+                        "leader_device": on,
+                        "leader_final_launches": {"sha256_fp": int(k1),
+                                                  "bloom_scatter": int(k5)},
+                        "check_launches": check_launches,
+                        "filter_bytes": len(art.to_bytes())}
+            print(f"phase 15 (e) fleet-fetch {rnd}: 2 workers over "
+                  f"{len(picks)} log(s) in {fleet_s:.1f} s (serial "
+                  f"{serial_s:.1f} s); merged report == serial == oracle "
+                  f"({out[rnd]['serials']} serials); the leader's fleet filter "
+                  f"(folded on {on} after both final saves, K1 {k1}, K5 {k5} "
+                  f"launches in that build) == a fresh build (K1 "
+                  f"{check_launches['sha256_fp']}, K5 "
+                  f"{check_launches['bloom_scatter']}) and answers every "
+                  f"logged serial", flush=True)
+        finally:
+            redis.stop()
+    return out
+
+
+def global_mesh_phase(device, seed: int) -> dict:
+    """15 (f): two processes join through ``initialize_multihost`` and
+    take one ``ShardedDedup`` step of GLOBAL_LANES lanes each on a
+    2-shard global mesh (``tools/global_mesh.py``): NCCL with two or
+    more cards, else gloo with the exchange staged through host memory.
+    The drain and each rank's ``was_unknown`` == a one-process 2-shard
+    mesh on the same lanes."""
+    import socket
+
+    import numpy as np
+
+    from ct_mapreduce_tpu_torch.tools import global_mesh
+
+    d = os.path.join(HERE, "build", "smoke_p15", "global")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmds = [["-m", "ct_mapreduce_tpu_torch.tools.global_mesh", "--rank",
+             str(r), "--world", "2", "--addr", f"127.0.0.1:{port}",
+             "--lanes", str(GLOBAL_LANES), "--seed", str(seed), "--out",
+             os.path.join(d, "two")] for r in range(2)]
+    t0 = time.perf_counter()
+    texts = _children(cmds)
+    wall = time.perf_counter() - t0
+    recs = [json.loads(t.strip().splitlines()[-1]) for t in texts]
+    reset_counts()
+    one = global_mesh.run(0, 1, "", 2, GLOBAL_LANES, seed, device,
+                          os.path.join(d, "one"))
+    launches = read_counts()
+    want = np.load(os.path.join(d, "one", "rank0.npz"))
+    for r in range(2):
+        got = np.load(os.path.join(d, "two", f"rank{r}.npz"))
+        lo = int(got["lo"])
+        check(np.array_equal(got["keys"], want["keys"])
+              and np.array_equal(got["meta"], want["meta"])
+              and np.array_equal(got["was_unknown"],
+                                 want["was_unknown"][lo:lo + GLOBAL_LANES]),
+              f"15 (f): rank {r}'s drain or verdicts differ from the "
+              "one-process mesh's")
+    check(recs[0]["total"] == one["total"] > 0, "15 (f): totals differ")
+    out = {"exchange": recs[0]["exchange"], "devices": recs[0]["devices"],
+           "lanes": recs[0]["lanes"], "total": one["total"],
+           "step_s": [r["step_s"] for r in recs], "one_step_s": one["step_s"],
+           "wall_s": wall, "launches": launches}
+    print(f"phase 15 (f) global-mesh: 2 processes x {GLOBAL_LANES} lanes on "
+          f"{out['devices']}, exchange by {out['exchange']}; drain and "
+          f"verdicts == the one-process 2-shard mesh's ({one['total']} keys); "
+          f"steps {out['step_s'][0]:.2f}, {out['step_s'][1]:.2f} s (one "
+          f"process {one['step_s']:.2f} s)", flush=True)
+    return out
+
+
 def kernels_line(k1: dict, k3: dict, probe: dict, walker: dict,
                  preparsed: dict, sinks: dict, fetch: dict,
                  extra_paths: dict, k5: dict, k6: dict) -> dict:
@@ -4703,9 +5272,10 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
     for preparsed in (False, True):  # the same batches through each lane
         out = main_path(device, Stream(args.seed, cn_filter=True),
                         MAIN_BATCHES, BATCH_LOG2, TABLE_BITS, 0.5, preparsed,
-                        drain_after=OPEN_BATCHES)
+                        drain_after=OPEN_BATCHES, keep_wu=not preparsed)
         lanes[out["lane"]] = out
         torch.cuda.empty_cache()
+    walker_wu = lanes["walker"].pop("_wu")  # phase 15 (a) is held to it
     check(lanes["walker"].pop("snapshot") == lanes["preparsed"].pop("snapshot"),
           "the walker lane's drain differs from the pre-parsed lane's")
     bucket_at = lanes["walker"].pop("drain_at")
@@ -4745,6 +5315,7 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
     lap("8")
     ckpts = checkpoints(device, staged_model, drains["staged"], args.seed)
     restored = ckpts.pop("_restored")
+    p9_path = ckpts.pop("_p9_path")
     del staged_model
     torch.cuda.empty_cache()
     lap("9")
@@ -4768,13 +5339,32 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
     torch.cuda.empty_cache()
     dist = distrib_fetch(device, logs.wait_ready()[3], logs, *fetch_truth,
                          args.seed)
-    logs.stop()
     lap("14a")
     print(f"phase 14 (a): {phase_s['14a']:.1f} s on {card}", flush=True)
     torch.cuda.empty_cache()
     audit = audit_shard(device, args.seed)
     lap("14b")
     print(f"phase 14 (b): {phase_s['14b']:.1f} s on {card}", flush=True)
+    torch.cuda.empty_cache()
+    p15 = {"walker": sharded_walker(device, args.seed, walker_wu,
+                                    bucket_at)}
+    mesh_model = p15["walker"].pop("_model")
+    mesh_stream, mesh_truth = p15["walker"].pop("_truth")
+    p15["walker"].pop("snapshot")
+    # (a)'s drain after OPEN_BATCHES batches was held equal to bucket_at.
+    p15["preparsed"] = sharded_preparsed(device, args.seed, bucket_at)
+    torch.cuda.empty_cache()
+    p15["ckpt"] = sharded_ckpt(device, mesh_model, p9_path, drains["staged"])
+    p15["serve"] = sharded_serve(device, mesh_model.aggregator, mesh_stream,
+                                 mesh_truth, args.seed)
+    del mesh_model
+    torch.cuda.empty_cache()
+    p15["fleet"] = fleet_fetch(device, logs, args.seed)
+    logs.stop()
+    torch.cuda.empty_cache()
+    p15["global"] = global_mesh_phase(device, args.seed)
+    lap("15")
+    print(f"phase 15: {phase_s['15']:.1f} s on {card}", flush=True)
     prof = None
     if args.profile:
         torch.cuda.empty_cache()
@@ -4789,7 +5379,7 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
                "open_layout": opened, "big_table": big, "sinks": sinks,
                "checkpoints": ckpts, "fetch": fetch, "serve": serve,
                "filter": filt, "verify": verify, "distrib": dist,
-               "audit": audit, "profile": prof, "sass": sass,
+               "audit": audit, "phase15": p15, "profile": prof, "sass": sass,
                "phase_s": phase_s,
                "wall_s": time.perf_counter() - t_start}
     print("phase seconds: " + ", ".join(
@@ -4816,7 +5406,18 @@ def run_phases(args, device, logs: LogProcess, t_start: float) -> int:
                    "verify_fetch": verify["fetch"]["launches"],
                    "distrib_fetch": dist["launches"],
                    "audit_shard": audit["launches"],
-                   "audit_classify": audit["classify_launches"]}
+                   "audit_classify": audit["classify_launches"],
+                   "sharded_walker": p15["walker"]["launches"],
+                   "sharded_preparsed": p15["preparsed"]["launches"],
+                   "fleet_serial_partition":
+                       p15["fleet"]["partition"]["serial_launches"],
+                   "fleet_serial_stripes":
+                       p15["fleet"]["stripes"]["serial_launches"],
+                   "fleet_filter_check_partition":
+                       p15["fleet"]["partition"]["check_launches"],
+                   "fleet_filter_check_stripes":
+                       p15["fleet"]["stripes"]["check_launches"],
+                   "global_mesh_one": p15["global"]["launches"]}
     print(json.dumps(kernels_line(k1, k3, probe, lanes["walker"],
                                   lanes["preparsed"], sinks, fetch,
                                   extra_paths, filt["k5"], verify["k6"])),

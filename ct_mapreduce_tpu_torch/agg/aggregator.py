@@ -1128,6 +1128,8 @@ class TorchAggregator:
         self.metrics["filtered_ca"] += int(f_ca.sum())
         self.metrics["filtered_expired"] += int(f_exp.sum())
         self.metrics["filtered_cn"] += int(f_cn.sum())
+        # Bit 6 is set only by the sharded step: its routing-cap spills.
+        self.metrics["dispatch_spill"] += int(((flags >> 6) & 1).sum())
         self.metrics["overflow"] += int(ovf.sum())
         self.issuer_totals[: counts.shape[0]] += counts
 
@@ -1893,11 +1895,7 @@ class TorchAggregator:
         host-owned array (on the CPU ``.numpy()`` is a view of the live
         rows, which the next step changes)."""
         with self._table_lock:
-            layout = ("open" if isinstance(self.table, hashtable.TableState)
-                      else "bucket")
-            rows = np.array(self.table.rows.cpu().numpy().view(np.uint32),
-                            copy=True)
-            count = np.asarray(np.int32(int(self.table.count)))
+            layout, rows, count = self._table_snapshot()
         slots = (rows if layout == "open"
                  else rows[:, : buckettable.SLOTS * 5].reshape(-1, 5))
         extra = {}
@@ -1923,7 +1921,7 @@ class TorchAggregator:
         np.savez_compressed(
             fh,
             layout=np.array(layout),
-            n_shards=np.int64(1),
+            n_shards=np.int64(self._topology_shards()),
             keys=slots[:, :4],
             meta=slots[:, 4],
             count=count,
@@ -1946,6 +1944,23 @@ class TorchAggregator:
             allow_pickle=True,
             **extra,
         )
+
+    def _topology_shards(self) -> int:
+        """Shards the table's slot positions are addressed over (the
+        ``n_shards`` field of a ck01 file)."""
+        return 1
+
+    def _table_snapshot(self) -> tuple[str, np.ndarray, np.ndarray]:
+        """``(layout, rows, count)`` of the table for a ck01 file: its
+        rows as a host-owned ``uint32`` copy, taken in ONE copy (on the
+        CPU ``.numpy()`` is a view of the live rows, which the next step
+        changes), and its occupied-slot count. Caller holds the table
+        lock."""
+        layout = ("open" if isinstance(self.table, hashtable.TableState)
+                  else "bucket")
+        rows = np.array(self.table.rows.cpu().numpy().view(np.uint32),
+                        copy=True)
+        return layout, rows, np.asarray(np.int32(int(self.table.count)))
 
     def _restore_table(self, keys: np.ndarray, meta: np.ndarray,
                        count: np.ndarray, layout: str,

@@ -1,5 +1,5 @@
 """ct-fetch: continuous CT-log ingest (a port of
-``ct_mapreduce_tpu.cmd.ct_fetch`` for one worker).
+``ct_mapreduce_tpu.cmd.ct_fetch``).
 
 The reference binary (reference cmd/ct-fetch/ct-fetch.go:490-638):
 config init → storage wiring → telemetry → sync engine + store workers
@@ -22,7 +22,24 @@ aggregator's device (K1 and K5 on the card); ``filterFpRate``,
 ``filterFormat``, ``filterStreamChunk``, ``filterFusedLanes`` and the
 capture spill ring (``filterCaptureSpillDir``/``filterCaptureSpillMB``)
 resolve through :func:`..filter.resolve_filter` as in the JAX package.
-The fleet's merged filter comes with the fleet (item 12).
+
+``numWorkers`` > 1 runs this process as one worker of a fleet
+(``ingest/fleet.py``): ``workerId`` (or ``CTMR_WORKER_ID``) names it,
+its logs are its rendezvous-hash share (or, with one log, its stripe of
+the log's entries, each stripe with its own durable cursor), its state
+and filter paths get a ``.w<id>`` suffix, and ``coordinatorBackend``
+(``redis`` over the configured cache, ``jax`` over the
+``torch.distributed`` process group of ``MASTER_ADDR``/``WORLD_SIZE``,
+``solo``) elects a leader, releases the workers together and publishes
+an epoch every ``checkpointPeriod``; each worker checkpoints when it
+sees the epoch advance, and with ``emitFilter`` the leader folds every
+worker's checkpoint into the fleet's merged filter at the unsuffixed
+``filterPath`` (K1 and K5 on its device), which every worker's query
+plane publishes. A tick folds whatever checkpoints are on disk; at the
+end of the run every worker marks its final save done and the leader,
+once the others are done (or their heartbeats lapsed), folds them all
+one last time, so the artifact it leaves holds every worker's entries.
+The JAX package leaves its last tick's build.
 
 ``queryPort`` starts the query plane (``serve/server.py``) over the
 live aggregator, on the aggregator's device: membership answers from
@@ -62,6 +79,12 @@ import time
 from ct_mapreduce_tpu_torch.config import CTConfig
 from ct_mapreduce_tpu_torch.config import profile as platprofile
 from ct_mapreduce_tpu_torch.engine import get_configured_storage, prepare_telemetry
+from ct_mapreduce_tpu_torch.ingest.fleet import (
+    FleetService,
+    build_coordinator,
+    resolve_fleet,
+    worker_state_path,
+)
 from ct_mapreduce_tpu_torch.ingest.health import HealthServer
 from ct_mapreduce_tpu_torch.ingest.sync import (
     LogSyncEngine,
@@ -70,6 +93,10 @@ from ct_mapreduce_tpu_torch.ingest.sync import (
 )
 from ct_mapreduce_tpu_torch.telemetry import flight, trace
 from ct_mapreduce_tpu_torch.utils import parse_duration
+
+# How long a fleet's leader waits at the end of its run for the other
+# workers' final saves before it folds the last merged filter.
+FLEET_FINISH_TIMEOUT_S = 3600.0
 
 
 class ProgressPrinter:
@@ -123,25 +150,10 @@ class ProgressPrinter:
         print(file=sys.stderr)
 
 
-def _env_int(name: str) -> int:
-    try:
-        return int(os.environ.get(name, "0"))
-    except ValueError:
-        return 0  # unparseable values are ignored, as the config layer does
-
-
 def refuse_unported(config: CTConfig) -> None:
     """Raise a ``ValueError`` naming the ROADMAP item of the first
     directive whose subsystem the port does not have yet."""
     unported = [
-        (max(config.num_workers, _env_int("CTMR_NUM_WORKERS")) > 1,
-         "numWorkers > 1 (the ingest fleet)", "item 12"),
-        (bool(config.coordinator_backend
-              or os.environ.get("CTMR_COORDINATOR")),
-         "coordinatorBackend (the fleet coordinator)", "item 12"),
-        (bool(config.checkpoint_period
-              or os.environ.get("CTMR_CHECKPOINT_PERIOD")),
-         "checkpointPeriod (the fleet's checkpoint cadence)", "item 12"),
         (config.metrics_port != 0,
          "metricsPort (the Prometheus endpoint)", "item 14"),
         (config.fleet_metrics is True, "fleetMetrics (fleet observability)",
@@ -154,6 +166,48 @@ def refuse_unported(config: CTConfig) -> None:
         if needed:
             raise ValueError(f"{what} is not ported yet "
                              f"(ROADMAP.md queue 1 {item})")
+
+
+def fleet_assignments(fleet, log_urls: list[str],
+                      takeover: bool = False,
+                      errors: list | None = None) -> list[tuple]:
+    """This worker's share of the feed as (url, offset, limit,
+    state_suffix) download assignments. Multi-log fleets partition
+    whole logs by rendezvous hash, then take the per-log fetch lease
+    on each: a log whose lease another worker still holds (takeover
+    racing the owner's restart) is skipped this round and re-contended
+    next round, so no log is ever fetched by two workers at once. A
+    fleet pointed at ONE log stripes its entry-index space instead
+    (one STH fetch resolves the tree size), each stripe with its own
+    durable cursor key; an STH failure is recorded in ``errors`` and
+    yields an empty round (retried on the next poll) instead of
+    killing the worker."""
+    if fleet is None:
+        return [(u, None, None, "") for u in log_urls]
+    if fleet.num_workers <= 1:
+        # Degenerate fleet: worker 0 owns everything, but the map
+        # still computes so its stats show it.
+        return [(u, None, None, "") for u in fleet.partition(log_urls)]
+    if len(log_urls) == 1:
+        from ct_mapreduce_tpu_torch.ingest.ctclient import CTLogClient
+
+        url = log_urls[0]
+        try:
+            tree_size = CTLogClient(url).get_sth().tree_size
+        except Exception as err:
+            if errors is not None:
+                errors.append(
+                    f"{url}: STH fetch for stripe assignment failed: "
+                    f"{err}")
+            return []
+        offset, limit = fleet.stripe(tree_size)
+        fleet.note_stripe(url, offset, limit)
+        if limit <= 0:
+            return []  # more workers than entries: nothing for us
+        return [(url, offset, limit, f"#w{fleet.worker_id}")]
+    return [(u, None, None, "")
+            for u in fleet.partition(log_urls, takeover=takeover)
+            if fleet.claim(u)]
 
 
 def slo_breaches() -> list:
@@ -221,6 +275,35 @@ def main(argv: list[str] | None = None, device=None) -> int:
     # subsystem resolves its knobs.
     platprofile.set_active_profile(config.platform_profile)
 
+    # Fleet resolution before any state path is used: each worker of a
+    # multi-worker ingest keeps its own aggregate snapshot (agg.npz →
+    # agg.w<id>.npz); storage-statistics merges them (aggStatePath glob).
+    num_workers, fleet_worker_id, checkpoint_period, coord_backend = (
+        resolve_fleet(config.num_workers, config.worker_id,
+                      config.checkpoint_period, config.coordinator_backend))
+    if fleet_worker_id >= num_workers:
+        print(f"error: workerId {fleet_worker_id} outside "
+              f"[0, numWorkers={num_workers})", file=sys.stderr)
+        return 2
+    if coord_backend.strip().lower() == "jax":
+        # The process-group fabric: join the group MASTER_ADDR and
+        # WORLD_SIZE name (a no-op without them).
+        from ct_mapreduce_tpu_torch.parallel.distributed import (
+            initialize_multihost,
+        )
+
+        initialize_multihost()
+    base_state_path = config.agg_state_path
+    config.agg_state_path = worker_state_path(
+        config.agg_state_path, fleet_worker_id, num_workers)
+    # A durable per-worker checkpoint on disk means this process is a
+    # WARM RESTART rejoining a fleet that already crossed its start
+    # barrier: it must not re-run the barrier, and its first round
+    # partitions against the LIVE membership so logs a survivor took
+    # over are not fetched twice.
+    resuming = bool(config.agg_state_path
+                    and os.path.exists(config.agg_state_path))
+
     database, _cache, _backend = get_configured_storage(config)
     dumper = prepare_telemetry("ct-fetch", config)
     if config.trace_path:
@@ -246,7 +329,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
 
     fknobs = resolve_filter(
         config.emit_filter or None, config.filter_path,
-        config.filter_fp_rate, state_path=config.agg_state_path,
+        config.filter_fp_rate, state_path=base_state_path,
         spill_dir=config.filter_capture_spill_dir,
         spill_mb=config.filter_capture_spill_mb,
         stream_chunk=config.filter_stream_chunk,
@@ -254,8 +337,15 @@ def main(argv: list[str] | None = None, device=None) -> int:
         fmt=config.filter_format)
     emit_filter = fknobs.emit
     if fknobs.emit and model is not None:
+        # Fleet workers get per-worker artifact and spill paths (like
+        # their snapshots); the leader emits the MERGED fleet filter at
+        # the unsuffixed path each epoch (leader_fleet_filter).
         model.aggregator.configure_filter_emission(
-            fknobs.path, fknobs.fp_rate, spill_dir=fknobs.spill_dir,
+            worker_state_path(fknobs.path, fleet_worker_id, num_workers),
+            fknobs.fp_rate,
+            spill_dir=(worker_state_path(fknobs.spill_dir, fleet_worker_id,
+                                         num_workers)
+                       if fknobs.spill_dir else ""),
             spill_mem_bytes=fknobs.spill_mb << 20, fmt=fknobs.fmt,
             stream_chunk=fknobs.stream_chunk,
             fused_lanes=fknobs.fused_lanes)
@@ -265,6 +355,86 @@ def main(argv: list[str] | None = None, device=None) -> int:
         emit_filter = False
 
     query_server = None
+    fleet = None
+
+    # Leader-side incremental build cache: across epoch ticks only the
+    # churned groups of the merged fleet filter rebuild.
+    from ct_mapreduce_tpu_torch.filter import GroupBuildCache
+
+    fleet_filter_cache = GroupBuildCache()
+    # The epoch ticks (fleet thread) and the end-of-run build (main
+    # thread) share the cache and the artifact path.
+    fleet_filter_lock = threading.Lock()
+
+    def leader_fleet_filter(final: bool = False) -> None:
+        """Leader epoch-tick duty: fold every worker snapshot present on
+        disk (agg/merge.py) and emit the merged fleet filter, on the
+        aggregator's device. Best-effort a tick: a worker mid-checkpoint
+        contributes its previous snapshot; the next epoch catches up.
+        The ``final`` build, after every worker's last save
+        (``FleetService.finish``), raises what it meets: the run fails
+        rather than leave a stale fleet filter behind."""
+        if not emit_filter or num_workers <= 1:
+            return
+        if fleet is None or not fleet.is_leader:
+            return
+        from ct_mapreduce_tpu_torch.agg import merge as aggmerge
+        from ct_mapreduce_tpu_torch.filter import artifact as fartifact
+        from ct_mapreduce_tpu_torch.ops import bloom_cuda, sha256_cuda
+        from ct_mapreduce_tpu_torch.telemetry.metrics import incr_counter
+
+        paths = [
+            p for p in (worker_state_path(base_state_path, w, num_workers)
+                        for w in range(num_workers))
+            if os.path.exists(p)
+        ]
+        if not paths:
+            return
+        with fleet_filter_lock:
+            launched = (sha256_cuda.LAUNCHES, bloom_cuda.LAUNCHES)
+            try:
+                merged = aggmerge.load_checkpoints(paths)
+                art = fartifact.build_from_merged(
+                    merged, fp_rate=fknobs.fp_rate, allow_partial=True,
+                    fmt=fknobs.fmt, cache=fleet_filter_cache,
+                    device=model.aggregator.device)
+                fartifact.write_artifact(fknobs.path, art.to_bytes())
+                incr_counter("filter", "fleet_emit")
+            except Exception as err:
+                incr_counter("filter", "fleet_emit_error")
+                print(f"fleet filter emission failed: "
+                      f"{type(err).__name__}: {err}", file=sys.stderr)
+                if final:
+                    raise
+                # The tick goes on: the next epoch retries the build.
+            if final:
+                print(f"fleet filter: {len(paths)} worker snapshot(s) "
+                      f"folded into {fknobs.path} on "
+                      f"{model.aggregator.device} (K1 "
+                      f"{sha256_cuda.LAUNCHES - launched[0]}, K5 "
+                      f"{bloom_cuda.LAUNCHES - launched[1]} launches)",
+                      file=sys.stderr)
+
+    def publish_distribution(epoch: int) -> None:
+        """Every epoch tick, THIS worker publishes the artifact at the
+        fleet's shared path (the leader's merged fleet filter) into its
+        own distribution store. The bytes are the same on every worker,
+        so every worker serves the same ETags, deltas and containers. A
+        follower ticking before the leader's write lands publishes one
+        epoch behind and catches up next tick."""
+        if not emit_filter or query_server is None:
+            return
+        try:
+            with open(fknobs.path, "rb") as fh:
+                blob = fh.read()
+        except OSError:
+            return  # the leader has not emitted yet; next epoch retries
+        try:
+            query_server.oracle.publish_artifact(epoch, blob,
+                                                 source="fleet")
+        except Exception as err:
+            print(f"filter distribution publish failed: "
+                  f"{type(err).__name__}: {err}", file=sys.stderr)
 
     def refresh_serve_filter() -> None:
         """Re-arm the query plane's filter tier from the live capture
@@ -299,6 +469,28 @@ def main(argv: list[str] | None = None, device=None) -> int:
         raw_batches=model is not None,
     )
     engine.start_store_threads()
+
+    # Fleet lifecycle (ingest/fleet.py): leader election + start barrier
+    # + heartbeats over the coordinator fabric, the leader publishing an
+    # epoch every checkpointPeriod (each worker checkpoints aggregate
+    # snapshot + cursors when it sees one), and a clean-shutdown
+    # broadcast that stops every worker's downloaders.
+    if num_workers > 1 or coord_backend or checkpoint_period:
+        coordinator = build_coordinator(
+            coord_backend, _cache, "ct-fetch", fleet_worker_id, num_workers)
+        fleet = FleetService(
+            coordinator,
+            checkpoint_period_s=(parse_duration(checkpoint_period)
+                                 if checkpoint_period else 0.0),
+            on_checkpoint=lambda epoch: (engine.checkpoint_now(),
+                                         leader_fleet_filter(),
+                                         publish_distribution(epoch)),
+            on_shutdown=lambda reason: (
+                print(f"\nfleet shutdown broadcast: {reason}",
+                      file=sys.stderr),
+                engine.signal_stop(),
+            ),
+        )
 
     health = None
     if config.health_addr:
@@ -352,6 +544,10 @@ def main(argv: list[str] | None = None, device=None) -> int:
             # Orchestrator kill: leave the post-mortem artifact before
             # draining (the drain itself may be what's wedged).
             flight.dump(f"signal {signum} (SIGTERM)")
+        if fleet is not None and fleet.is_leader:
+            # Leader-published clean shutdown: followers see the
+            # broadcast and drain too, so one signal stops the fleet.
+            fleet.request_shutdown(f"leader signal {signum}")
         engine.signal_stop()
 
     def handle_dump_signal(signum, frame):
@@ -388,11 +584,32 @@ def main(argv: list[str] | None = None, device=None) -> int:
             print(f"profiling disabled: {err}", file=sys.stderr)
 
     final_round_errors = False
+    sync_round = 0
     try:
+        if fleet is not None:
+            # Election + start barrier: every worker begins its share at
+            # once, as with the reference's Redis barrier.
+            run_stage["stage"] = "electing"
+            role = fleet.start(timeout_s=600.0, rejoin=resuming)
+            print(f"fleet worker {fleet.worker_id}/{num_workers} "
+                  f"({'leader' if role else 'follower'}"
+                  f"{', rejoined' if fleet.rejoined else ''}, "
+                  f"coordinator={type(fleet.coordinator).__name__})",
+                  file=sys.stderr)
         while True:
             run_stage["stage"] = "syncing"
-            for url in log_urls:
-                engine.sync_log(url)
+            # Dead-owner takeover on later runForever rounds (the start
+            # barrier guaranteed full membership for round 0) and on a
+            # rejoining worker's first round; the per-log lease
+            # arbitrates the races.
+            takeover = sync_round > 0 or (
+                fleet is not None and fleet.rejoined)
+            for url, f_off, f_lim, f_sfx in fleet_assignments(
+                    fleet, log_urls, takeover=takeover,
+                    errors=engine.errors):
+                engine.sync_log(url, offset=f_off, limit=f_lim,
+                                state_suffix=f_sfx)
+            sync_round += 1
             engine.wait_for_downloads()
             run_stage["stage"] = "draining"
             engine.stop()  # drain queue, flush sink
@@ -400,6 +617,11 @@ def main(argv: list[str] | None = None, device=None) -> int:
                 run_stage["stage"] = "saving"
                 model.save()
                 refresh_serve_filter()
+            if fleet is not None:
+                # This round's entries are durably folded: drop the
+                # fetch leases so next round's rightful owners can take
+                # them.
+                fleet.release_claims()
             run_stage["stage"] = "idle"
             # Drain this round's errors so runForever doesn't re-print
             # (or unboundedly accumulate) them across polls.
@@ -409,6 +631,8 @@ def main(argv: list[str] | None = None, device=None) -> int:
             engine.errors.clear()
             if not config.run_forever or engine.stop_event.is_set():
                 break
+            if fleet is not None and fleet.shutdown_requested():
+                break
             engine.start_store_threads()  # next round
             delay = polling_delay(
                 parse_duration(config.polling_delay_mean),
@@ -416,6 +640,17 @@ def main(argv: list[str] | None = None, device=None) -> int:
             )
             if engine.stop_event.wait(delay):
                 break
+        if fleet is not None and emit_filter and num_workers > 1:
+            # The fleet's last merged filter holds every worker's final
+            # save: each worker marks its own done, the leader waits for
+            # the others (or for their heartbeats to lapse) and folds.
+            run_stage["stage"] = "finishing"
+            pending = fleet.finish(timeout_s=FLEET_FINISH_TIMEOUT_S)
+            if pending:
+                print(f"fleet filter: workers {pending} still running "
+                      f"after {FLEET_FINISH_TIMEOUT_S:.0f} s; their last "
+                      f"checkpoints are folded", file=sys.stderr)
+            leader_fleet_filter(final=True)
         if hasattr(sink, "close"):
             sink.close()  # stops the overlap pipeline's threads
     except BaseException as err:
@@ -439,6 +674,8 @@ def main(argv: list[str] | None = None, device=None) -> int:
             health.stop()
         if query_server:
             query_server.stop()
+        if fleet is not None:
+            fleet.stop()
         if dumper:
             dumper.stop()
         if trace.enabled():

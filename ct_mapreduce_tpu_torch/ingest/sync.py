@@ -928,22 +928,36 @@ class LogWorker:
         offset: int = 0,
         limit: int = 0,
         pre_save=None,
+        state_suffix: str = "",
     ):
         self.client = client
         self.database = database
         self.pre_save = pre_save  # runs before each durable cursor write
+        # Fleet stripe mode (ingest/fleet.py::partition_range): workers
+        # share one log but own disjoint [offset, offset+limit) index
+        # ranges, so each stripe keeps its OWN durable cursor under
+        # `<short_url><state_suffix>` (a shared cursor would clobber
+        # across workers), and resume takes max(stripe start, saved
+        # cursor) with the stripe END fixed, so a warm restart replays
+        # only the post-checkpoint tail of its own stripe.
+        self.state_suffix = state_suffix
         self.sth = client.get_sth()
         self.log_state: CertificateLog = database.get_log_state(
-            client.short_url)
+            client.short_url + state_suffix)
         tree_end = self.sth.tree_size - 1
-        if offset > 0:
-            self.start_pos = offset
+        if state_suffix:
+            self.start_pos = max(offset, self.log_state.max_entry)
+            self.end_pos = (min(offset + limit - 1, tree_end)
+                            if limit > 0 else tree_end)
         else:
-            self.start_pos = self.log_state.max_entry
-        if limit > 0:
-            self.end_pos = min(self.start_pos + limit - 1, tree_end)
-        else:
-            self.end_pos = tree_end
+            if offset > 0:
+                self.start_pos = offset
+            else:
+                self.start_pos = self.log_state.max_entry
+            if limit > 0:
+                self.end_pos = min(self.start_pos + limit - 1, tree_end)
+            else:
+                self.end_pos = tree_end
         self.position = self.start_pos
         self.last_entry_time: Optional[datetime] = None
         self._publish_lag()
@@ -1281,11 +1295,12 @@ class LogSyncEngine:
     # -- producers ------------------------------------------------------
     def sync_log(self, log_url: str, transport=None,
                  offset: Optional[int] = None,
-                 limit: Optional[int] = None) -> threading.Thread:
+                 limit: Optional[int] = None,
+                 state_suffix: str = "") -> threading.Thread:
         """Start one downloader. ``offset``/``limit`` override the
-        engine-wide window. (The JAX package's ``state_suffix``, a fleet
-        stripe's own cursor, comes with the fleet, ROADMAP.md queue 1
-        item 12.)"""
+        engine-wide window (a fleet's entry-range stripes of one log
+        pass their own); ``state_suffix`` keys the stripe's durable
+        cursor (see :class:`LogWorker`)."""
         eff_offset = self.offset if offset is None else offset
         eff_limit = self.limit if limit is None else limit
 
@@ -1299,6 +1314,7 @@ class LogSyncEngine:
                     # Items carry the client's normalized URL, so the
                     # watermark key must match it.
                     pre_save=lambda: self._pre_cursor_save(client.log_url),
+                    state_suffix=state_suffix,
                 )
                 with self._active_lock:
                     self._active_workers.append(worker)

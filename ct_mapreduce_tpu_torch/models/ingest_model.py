@@ -1,7 +1,9 @@
 """The port's entry point: config → aggregator → ingest → drain → save.
 
-The counterpart of ``ct_mapreduce_tpu.models.ingest_model`` on one
-device. Packed leaf rows take one of two lanes:
+The counterpart of ``ct_mapreduce_tpu.models.ingest_model``: a
+:class:`TorchAggregator` on one device, or a ``ShardedAggregator`` over
+a mesh of several (``meshShape``, or a ``mesh`` the caller builds with
+``parallel.make_mesh``). Packed leaf rows take one of two lanes:
 
 - the walker lane, the default (``preparsedIngest = false``): rows go
   to the device, where the walker kernel parses them, then the filters,
@@ -24,14 +26,13 @@ import os
 from datetime import datetime, timezone
 
 import numpy as np
-import torch
 
 from ct_mapreduce_tpu_torch.agg.aggregator import (
     AggregateSnapshot, IngestResult, TorchAggregator)
 from ct_mapreduce_tpu_torch.config import CTConfig
-from ct_mapreduce_tpu_torch.device import resolve_device
 from ct_mapreduce_tpu_torch.native import leafpack
-from ct_mapreduce_tpu_torch.parallel.mesh import parse_mesh_shape
+from ct_mapreduce_tpu_torch.parallel.mesh import (
+    make_mesh, parse_mesh_shape, visible_devices)
 
 
 def mesh_devices(config: CTConfig, device=None) -> int:
@@ -42,36 +43,50 @@ def mesh_devices(config: CTConfig, device=None) -> int:
     spec = parse_mesh_shape(config.mesh_shape)
     if -1 not in spec.axis_sizes:
         return spec.fixed_size
-    dev = resolve_device(device)
-    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-    return math.prod(spec.resolve(visible))
+    return math.prod(spec.resolve(len(visible_devices(device))))
 
 
 def build_aggregator(config: CTConfig, mesh=None,
                      device=None) -> TorchAggregator:
-    """Single-device aggregator from config, on CUDA unless ``device``
-    names another. ``meshShape`` must resolve to one device (``shard:1``,
-    or empty with one device visible); more is refused. The checkpoint
-    knobs are pinned from the config's directives (unset ones resolve
-    through env and defaults)."""
-    if mesh is not None or mesh_devices(config, device) != 1:
-        raise NotImplementedError(
-            f"meshShape {config.mesh_shape!r}: more than one device is not "
-            "ported yet (ROADMAP.md queue 1 item 12, multi-GPU)")
+    """The aggregator from config, on CUDA unless ``device`` names
+    another: a mesh of more than one device (``mesh``, or ``meshShape``
+    over the visible devices) gets a :class:`ShardedAggregator`, a
+    multi-axis mesh flattened to ``shard``; otherwise one device. The
+    checkpoint knobs are pinned from the config's directives (unset ones
+    resolve through env and defaults)."""
     now = (
         datetime.fromtimestamp(0, tz=timezone.utc)
         if config.log_expired_entries
         else None
     )
-    agg = TorchAggregator(
+    common = dict(
         capacity=1 << config.table_bits,
         batch_size=config.batch_size,
         cn_prefixes=tuple(config.issuer_cn_filters()),
         now=now,
         grow_at=config.table_grow_at,
         max_capacity=1 << config.table_max_bits,
-        device=device,
     )
+    if mesh is None and mesh_devices(config, device) > 1:
+        mesh = make_mesh(config.mesh_shape, visible_devices(device))
+    if mesh is not None and mesh.size > 1:
+        from ct_mapreduce_tpu_torch.agg.sharded import AXIS, mesh_capacity
+        from ct_mapreduce_tpu_torch.agg.sharded_agg import ShardedAggregator
+
+        # The dedup's table and batch sharding is 1-D: a multi-axis mesh
+        # ("data:4,expert:2") is flattened over the same devices.
+        if len(mesh.axis_names) != 1:
+            mesh = mesh.flatten(AXIS)
+        n = mesh.size
+        # Capacity UP to a power-of-two unit a shard, the batch up to a
+        # multiple of the mesh size.
+        agg = ShardedAggregator(mesh, **{
+            **common, "capacity": mesh_capacity(n, common["capacity"]),
+            "batch_size": -(-common["batch_size"] // n) * n})
+    else:
+        if mesh is not None:  # a mesh of one device names it
+            device = mesh.devices.flat[0]
+        agg = TorchAggregator(**common, device=device)
     agg.configure_checkpointing(
         mode=config.checkpoint_mode, max_chain=config.ckpt_max_chain,
         segment_budget_mb=config.ckpt_segment_budget_mb)

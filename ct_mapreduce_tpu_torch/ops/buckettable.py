@@ -313,8 +313,17 @@ def contains(state: BucketTable, keys: torch.Tensor,
     """Batch membership query: bool[B]. One bucket gather resolves a
     lane unless the bucket is full-without-match (then it hops, like
     the insert's bucket-granular open addressing)."""
-    rows = state.rows
-    nb = rows.shape[0]
+    return contains_rows(state.rows, keys, state.rows.shape[0], max_probes)
+
+
+def contains_rows(rows: torch.Tensor, keys: torch.Tensor, nb: int,
+                  max_probes: int = 32,
+                  row_base: torch.Tensor | None = None) -> torch.Tensor:
+    """The bucket-hop probe of :func:`contains` over a block of ``nb``
+    buckets of ``rows`` starting at row ``row_base`` (int64[B], a lane's
+    shard's block in a sharded table's global rows; row 0 without it).
+    A caller that derives ``row_base`` from the keys passes them through
+    ``_desentinel`` first, as this does. bool[B]."""
     b = keys.shape[0]
     keys = _desentinel(keys)
     h = _home_bucket(keys, nb)
@@ -322,7 +331,7 @@ def contains(state: BucketTable, keys: torch.Tensor,
     found = torch.zeros((b,), dtype=torch.bool, device=rows.device)
     hops = 0
     while hops < max_probes and bool(open_.any()):
-        row = rows[h]
+        row = rows[h if row_base is None else row_base + h]
         kw = row[:, : SLOTS * 5].view(b, SLOTS, 5)[:, :, :4]
         match = (kw == keys[:, None, :]).all(dim=2).any(dim=1)
         has_empty = row[:, FILL_WORD] < SLOTS

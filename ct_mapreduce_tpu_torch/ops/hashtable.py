@@ -126,15 +126,20 @@ def _home_slot(keys: torch.Tensor, capacity: int) -> torch.Tensor:
 
 def _probe_window(rows: torch.Tensor, keys: torch.Tensor,
                   home: torch.Tensor, r: torch.Tensor, w: int,
-                  max_probes: int, capacity: int):
+                  max_probes: int, capacity: int,
+                  slot_base: torch.Tensor | None = None):
     """One W-wide window of triangular-chain probes, the shared access
     pattern of :func:`insert` and :func:`contains`. Returns
     ``(slots [B, W], match_j [B, W], empty_j [B, W])`` with positions
-    past ``max_probes`` masked out of both match and empty."""
+    past ``max_probes`` masked out of both match and empty.
+    ``slot_base`` (int64[B]) offsets each lane's chain into a block of
+    ``capacity`` slots of a larger ``rows`` (a sharded table's global
+    view, ``agg/sharded.py``); the returned slots stay block-local."""
     rj = r[:, None] + torch.arange(w, dtype=torch.int64, device=r.device)
     slots = (home[:, None] + (rj * (rj + 1)) // 2) & (capacity - 1)
     in_budget = rj < max_probes
-    cur = rows[slots][..., :4]  # [B, W, 4] key words of each row
+    at = slots if slot_base is None else slots + slot_base[:, None]
+    cur = rows[at][..., :4]  # [B, W, 4] key words of each row
     match_j = (cur == keys[:, None, :]).all(dim=-1) & in_budget
     empty_j = (cur == 0).all(dim=-1) & in_budget
     return slots, match_j, empty_j

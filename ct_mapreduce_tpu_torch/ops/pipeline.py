@@ -344,13 +344,16 @@ def pack_lane_words(out: StepOut) -> torch.Tensor:
     """One walker step's per-lane outputs as ONE int32[7, B] tensor, so
     the host pays one device-to-host copy for them: row 0 the flag word
     (host_lane | was_unknown<<1 | filtered_ca<<2 | filtered_expired<<3 |
-    filtered_cn<<4 | probe_overflow<<5), rows 1-6 not_after_hour,
+    filtered_cn<<4 | probe_overflow<<5, and for a sharded step's
+    ``ShardedStepOut`` dispatch_dropped<<6), rows 1-6 not_after_hour,
     serial_len, crldp_off, crldp_len, issuer_name_off, issuer_name_len
     (the JAX package's readback layout)."""
     flags = torch.zeros_like(out.not_after_hour)
-    for bit, f in enumerate((out.host_lane, out.was_unknown,
-                             out.filtered_ca, out.filtered_expired,
-                             out.filtered_cn, out.probe_overflow)):
+    bits = [out.host_lane, out.was_unknown, out.filtered_ca,
+            out.filtered_expired, out.filtered_cn, out.probe_overflow]
+    if hasattr(out, "dispatch_dropped"):
+        bits.append(out.dispatch_dropped)
+    for bit, f in enumerate(bits):
         flags |= f.to(torch.int32) << bit
     return torch.stack([flags, out.not_after_hour, out.serial_len,
                         out.crldp_off, out.crldp_len, out.issuer_name_off,

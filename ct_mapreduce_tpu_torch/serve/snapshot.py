@@ -1,5 +1,5 @@
 """Snapshot isolation for the query plane: epoch-pinned read views (port
-of ``ct_mapreduce_tpu.serve.snapshot`` for one device).
+of ``ct_mapreduce_tpu.serve.snapshot``).
 
 Queries must not race ingest: the aggregator's table rows change in
 place on every insert, and its host-lane sets mutate under the fold
@@ -34,9 +34,13 @@ Where this port departs from the JAX module:
   the card is out of memory at pin time; any other fault there is
   raised, so the batch fails with a 5xx instead of being answered
   silently on the host.
-* The sharded views (``n_shards > 1``, per-shard row blocks on their
-  shards' devices) raise a ``ValueError`` naming ROADMAP item 12,
-  which brings the sharded aggregator.
+* A sharded view (``n_shards > 1``, a ``ShardedAggregator``'s global
+  row view) routes each fingerprint to its home shard's row block with
+  the ingest's routing hash. In a ``ReplicaPool`` each block is pinned
+  on its own shard's device (on the card: a copy of the shard's rows
+  made there); a device view with no pool targets pins the global rows
+  on the aggregator's device and probes them with
+  ``agg.sharded._contains_global*``.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ct_mapreduce_tpu_torch.agg import sharded
 from ct_mapreduce_tpu_torch.core import packing
 from ct_mapreduce_tpu_torch.ops import buckettable, hashtable, pipeline
 from ct_mapreduce_tpu_torch.telemetry import trace
@@ -56,10 +61,6 @@ from ct_mapreduce_tpu_torch.telemetry.metrics import (
     measure,
     set_gauge,
 )
-
-_SHARDED = ("a sharded table view is not ported yet "
-            "(ROADMAP.md queue 1 item 12, multi-GPU)")
-
 
 def _place(rows: np.ndarray, device: torch.device) -> torch.Tensor:
     """uint32 host rows → an int32 bit-pattern copy on ``device``."""
@@ -117,15 +118,24 @@ class TableView:
         verify_counts: Optional[dict] = None,
         home_device: Optional[torch.device] = None,
         dev_rows: Optional[torch.Tensor] = None,
+        dev_blocks: Optional[list] = None,
     ) -> None:
-        if n_shards != 1:
-            raise ValueError(_SHARDED)
-        if (rows is None) == (dev_rows is None):
-            raise ValueError("a view needs exactly one of rows, dev_rows")
+        given = [x is not None for x in (rows, dev_rows, dev_blocks)]
+        if sum(given) != 1:
+            raise ValueError("a view needs exactly one of rows, dev_rows, "
+                             "dev_blocks")
+        if dev_blocks is not None and len(dev_blocks) != n_shards:
+            raise ValueError(f"{len(dev_blocks)} blocks for {n_shards} "
+                             "shards")
         self.epoch = epoch
         self._rows = rows
         self._rows_lock = threading.Lock()
-        self.n_rows = int((rows if dev_rows is None else dev_rows).shape[0])
+        if rows is not None:
+            self.n_rows = int(rows.shape[0])
+        elif dev_rows is not None:
+            self.n_rows = int(dev_rows.shape[0])
+        else:
+            self.n_rows = sum(int(b.shape[0]) for b in dev_blocks)
         self.layout = layout
         self.n_shards = n_shards
         self.max_probes = max_probes
@@ -152,16 +162,21 @@ class TableView:
         self._home_device = (torch.device("cpu") if home_device is None
                              else _concrete(home_device))
         self._dev_rows: Optional[torch.Tensor] = dev_rows  # pinned copy
+        # A sharded pool's pinned per-shard row blocks, in shard order.
+        self._dev_blocks: Optional[list] = dev_blocks
         self.replica_ix = None  # pool slot this view serves from
 
     @property
     def rows(self) -> np.ndarray:
-        """The host mirror, copied off the card on first read when the
-        view was captured there."""
+        """The host mirror (the global row view of a sharded one), copied
+        off the card on first read when the view was captured there."""
         if self._rows is None:
             with self._rows_lock:
                 if self._rows is None:
-                    self._rows = self._dev_rows.cpu().numpy().view(np.uint32)
+                    dev = ([self._dev_rows] if self._dev_rows is not None
+                           else self._dev_blocks)
+                    self._rows = torch.cat([d.cpu() for d in dev]).numpy(
+                        ).view(np.uint32)
         return self._rows
 
     def age_s(self) -> float:
@@ -174,29 +189,53 @@ class TableView:
 
     @property
     def pinned_device(self) -> Optional[torch.device]:
-        """The device of the pinned copy, or None while unpinned."""
-        return None if self._dev_rows is None else self._dev_rows.device
+        """The device of the pinned copy (of shard 0's block in a
+        sharded pool), or None while unpinned."""
+        devs = self.pinned_devices
+        return devs[0] if devs else None
+
+    @property
+    def pinned_devices(self) -> list:
+        """The device of each pinned copy: one for the whole rows, one a
+        shard for a sharded pool's blocks; empty while unpinned."""
+        if self._dev_blocks is not None:
+            return [b.device for b in self._dev_blocks]
+        return [] if self._dev_rows is None else [self._dev_rows.device]
+
+    def _block(self, s: int) -> np.ndarray:
+        """Shard ``s``'s contiguous row block of the host mirror."""
+        block = self.n_rows // self.n_shards
+        return self.rows[s * block: (s + 1) * block]
 
     def pin(self) -> "TableView":
         """Copy the rows to the device NOW, on the caller's (refresh)
-        thread, so the serving path never pays the copy. A failure to
-        pin flips the view to the host mirror for good (the next
-        epoch's capture tries the device again), counted by
-        ``serve.device_fallback``: any failure for a CPU target, only
-        running out of memory for a CUDA one. Any other CUDA fault is
-        raised."""
-        if not self._device or self._dev_rows is not None:
+        thread, so the serving path never pays the copy. In a sharded
+        pool each shard's row block goes to its own shard's device, so
+        no device holds the global rows. A failure to pin flips the view
+        to the host mirror for good (the next epoch's capture tries the
+        device again), counted by ``serve.device_fallback``: any failure
+        for a CPU target, only running out of memory for a CUDA one. Any
+        other CUDA fault is raised."""
+        if not self._device or self.pinned_devices:
             return self
-        dev = self._target()
+        sharded_pool = self.n_shards > 1 and bool(self._devices)
+        devs = ([_concrete(self._devices[s % len(self._devices)])
+                 for s in range(self.n_shards)] if sharded_pool
+                else [self._target()])
         try:
-            self._dev_rows = _place(self.rows, dev)
+            if sharded_pool:
+                self._dev_blocks = [_place(self._block(s), d)
+                                    for s, d in enumerate(devs)]
+            else:
+                self._dev_rows = _place(self.rows, devs[0])
         except Exception as err:
-            if dev.type != "cpu" and not isinstance(
+            if any(d.type != "cpu" for d in devs) and not isinstance(
                     err, torch.cuda.OutOfMemoryError):
                 raise
             incr_counter("serve", "device_fallback")
             self._device = False
             self._dev_rows = None
+            self._dev_blocks = None
         return self
 
     # -- membership ------------------------------------------------------
@@ -215,14 +254,23 @@ class TableView:
             return self._contains_host(fps)
 
     def _contains_host(self, fps: np.ndarray) -> np.ndarray:
-        if self.layout == "bucket":
-            return buckettable.contains_np(
-                self.rows, fps, max_probes=self.max_probes)
-        return hashtable.contains_np(
-            self.rows, fps, max_probes=self.max_probes)
+        contains_np = (buckettable.contains_np if self.layout == "bucket"
+                       else hashtable.contains_np)
+        if self.n_shards == 1:
+            return contains_np(self.rows, fps, max_probes=self.max_probes)
+        # Sharded: home shard from the routing hash, then the layout's
+        # probe inside that shard's row block, the addressing the
+        # sharded insert placed the key by (one probe a shard present).
+        dest = sharded.shard_of_np(fps, self.n_shards)
+        out = np.zeros((fps.shape[0],), bool)
+        for s in np.unique(dest):
+            sel = dest == s
+            out[sel] = contains_np(self._block(int(s)), fps[sel],
+                                   max_probes=self.max_probes)
+        return out
 
     def _contains_device(self, fps: np.ndarray) -> np.ndarray:
-        if self._dev_rows is None:
+        if not self.pinned_devices:
             # Pinned once per view: queries never touch the live table.
             self.pin()
             if not self._device:
@@ -232,7 +280,7 @@ class TableView:
                             lanes=int(fps.shape[0])):
                 return self._contains_device_pinned(fps)
         except Exception:
-            if self._dev_rows.device.type != "cpu":
+            if any(d.type != "cpu" for d in self.pinned_devices):
                 raise  # a CUDA fault fails the batch, never the host
             # A CPU pinned copy that stops answering degrades to the
             # host mirror instead of failing the batch, as in the JAX
@@ -240,15 +288,39 @@ class TableView:
             incr_counter("serve", "device_fallback")
             self._device = False
             self._dev_rows = None
+            self._dev_blocks = None
             return self._contains_host(fps)
 
-    def _contains_device_pinned(self, fps: np.ndarray) -> np.ndarray:
-        rows = self._dev_rows
+    def _state(self, rows: torch.Tensor):
+        """A probe state over pinned ``rows`` in the view's layout."""
         zero = torch.zeros((), dtype=torch.int64, device=rows.device)
-        state = (buckettable.BucketTable(rows, zero)
-                 if self.layout == "bucket"
-                 else hashtable.TableState(rows, zero))
-        return self._probe_state(state, fps)
+        return (buckettable.BucketTable(rows, zero)
+                if self.layout == "bucket"
+                else hashtable.TableState(rows, zero))
+
+    def _contains_device_pinned(self, fps: np.ndarray) -> np.ndarray:
+        if self._dev_blocks is not None:
+            # Shard-routed: home shard on the host (the ingest's routing
+            # hash), then the layout's probe against that shard's block
+            # on that shard's device.
+            dest = sharded.shard_of_np(fps, self.n_shards)
+            out = np.zeros((fps.shape[0],), bool)
+            for s in np.unique(dest):
+                sel = dest == s
+                out[sel] = self._probe_state(
+                    self._state(self._dev_blocks[int(s)]), fps[sel])
+            return out
+        if self.n_shards > 1:
+            n = fps.shape[0]
+            width = _pow2_width(n)
+            if width != n:
+                fps = np.pad(fps, ((0, width - n), (0, 0)))
+            fn = (sharded._contains_global_bucket if self.layout == "bucket"
+                  else sharded._contains_global)
+            found = fn(self._dev_rows, _place(fps, self._dev_rows.device),
+                       self.n_shards, self.max_probes)
+            return found.cpu().numpy()[:n]
+        return self._probe_state(self._state(self._dev_rows), fps)
 
     def _probe_state(self, state, fps: np.ndarray) -> np.ndarray:
         """The layout's ``contains`` against one pinned probe state,
@@ -330,8 +402,9 @@ class TableView:
 
 def capture_view(agg, epoch: int, device: bool = False,
                  devices: Optional[list] = None) -> TableView:
-    """Pin one epoch of ``agg`` (a ``TorchAggregator``, on any device)
-    into an immutable :class:`TableView`.
+    """Pin one epoch of ``agg`` (a ``TorchAggregator`` or a
+    ``ShardedAggregator``, on any device) into an immutable
+    :class:`TableView`.
 
     Lock order is fold → table, as for every other cross-state reader
     (``grow``, ``drain``): the fold lock freezes the host-lane sets,
@@ -339,25 +412,45 @@ def capture_view(agg, epoch: int, device: bool = False,
     mid-copy. A device view whose target is the aggregator's own CUDA
     device is pinned by one copy on the card; otherwise the rows leave
     the device in one copy (forced on the CPU, since the live rows
-    change in place)."""
-    if getattr(agg, "dedup", None) is not None:
-        raise ValueError(_SHARDED)
+    change in place). A sharded aggregator's view is its global row view;
+    when each shard's pool target is that shard's own card, each shard's
+    rows are copied on its card (the pinned blocks), else the global
+    rows leave the devices in one copy a shard."""
+    dedup = getattr(agg, "dedup", None)
     home = _concrete(agg.device)
     target = _concrete(devices[0]) if devices else home
     on_card = device and home.type == "cuda" and target == home
-    rows = dev_rows = None
+    rows = dev_rows = dev_blocks = None
+    n_shards = 1
     t0 = time.time()
     with agg._fold_lock:
         with agg._table_lock:
-            layout = ("open" if isinstance(agg.table, hashtable.TableState)
-                      else "bucket")
-            if on_card:
+            if dedup is not None:
+                layout, n_shards = dedup.layout, dedup.n_shards
+                shard_devs = [_concrete(d) for d in dedup.devices]
+                if (device and devices and all(d.type == "cuda"
+                                               for d in shard_devs)
+                        and [_concrete(devices[s % len(devices)])
+                             for s in range(n_shards)] == shard_devs):
+                    try:
+                        dev_blocks = [dedup.tables[s].rows.clone()
+                                      for s in range(n_shards)]
+                    except torch.cuda.OutOfMemoryError:
+                        incr_counter("serve", "device_fallback")
+                        device = False
+                if dev_blocks is None:
+                    rows = dedup.host_rows()
+            else:
+                layout = ("open"
+                          if isinstance(agg.table, hashtable.TableState)
+                          else "bucket")
+            if on_card and dedup is None:
                 try:
                     dev_rows = agg.table.rows.clone()
                 except torch.cuda.OutOfMemoryError:
                     incr_counter("serve", "device_fallback")
                     device = False
-            if dev_rows is None:
+            if dedup is None and dev_rows is None:
                 rows = agg.table.rows.to("cpu", copy=True).numpy().view(
                     np.uint32)
             capacity = agg.capacity
@@ -369,7 +462,7 @@ def capture_view(agg, epoch: int, device: bool = False,
         verify_counts = agg.verify_counts()
         table_fill = agg._table_fill
     return TableView(
-        epoch=epoch, rows=rows, layout=layout, n_shards=1,
+        epoch=epoch, rows=rows, layout=layout, n_shards=n_shards,
         max_probes=agg.max_probes, base_hour=agg.base_hour,
         host_serials=host_serials, issuer_totals=issuer_totals,
         crl_counts=crl_counts, dn_counts=dn_counts, registry=agg.registry,
@@ -381,6 +474,7 @@ def capture_view(agg, epoch: int, device: bool = False,
         verify_counts=verify_counts,
         home_device=home,
         dev_rows=dev_rows,
+        dev_blocks=dev_blocks,
     )
 
 
@@ -491,10 +585,14 @@ class ReplicaPool:
         return self._refreshing
 
     def _resolve_devices(self) -> Optional[list]:
-        """The pool's placement target: the aggregator's own device
-        (one device until ROADMAP item 12 brings sharded placement)."""
+        """The pool's placement targets: each shard's own device for a
+        sharded aggregator (shard ``s``'s block on ``devices[s]``), else
+        the aggregator's device."""
         if self._devices is None and self._device:
-            self._devices = [_concrete(self._agg.device)]
+            dedup = getattr(self._agg, "dedup", None)
+            self._devices = ([_concrete(d) for d in dedup.devices]
+                             if dedup is not None
+                             else [_concrete(self._agg.device)])
         return self._devices or None
 
     def _capture(self) -> TableView:

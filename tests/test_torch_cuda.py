@@ -1307,3 +1307,51 @@ def test_verify_lane_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     assert out[("cuda", 8)]["verified"] == 9 and out[("cuda", 8)]["failed"] == 3
+
+
+@pytest.mark.parametrize("layout", ["bucket", "open"])
+def test_sharded_step_on_card_matches_cpu(cuda, layout, monkeypatch):
+    """The sharded step (the walker lane's K3 and K1 once a device, the
+    K7 dispatch and exchange, each shard's insert) on a mesh of four
+    shards over the card against the same mesh over the CPU: every
+    output, every shard's rows and the drain. Tolerance: exact
+    equality."""
+    from ct_mapreduce_tpu_torch.agg.sharded import ShardedDedup, mesh_capacity
+    from ct_mapreduce_tpu_torch.parallel import make_mesh
+    from ct_mapreduce_tpu_torch.utils import syncerts
+
+    monkeypatch.setenv("CTMR_TABLE", layout)
+    here = torch.device("cuda", torch.cuda.current_device())
+    tpls = [syncerts.make_template(issuer_cn=f"Card Mesh CA {i}",
+                                   serial_len=9 + i) for i in range(3)]
+    rng = np.random.default_rng(4)
+    n = 1024
+    tof = rng.integers(0, 3, n)
+    ctr = rng.integers(1, 700, n)  # replays within and across steps
+    data = np.zeros((n, 1024), np.uint8)
+    length = np.zeros((n,), np.int32)
+    for i in range(n):
+        der = syncerts.stamp_serial(tpls[tof[i]], int(ctr[i]))
+        data[i, : len(der)] = np.frombuffer(der, np.uint8)
+        length[i] = len(der)
+    issuer = tof.astype(np.int32)
+    valid = rng.random(n) > 0.03
+    now_hour = 480_000
+    outs = {}
+    for dev in (here, torch.device("cpu")):
+        d = ShardedDedup(make_mesh("shard:4", [dev] * 4),
+                         capacity=mesh_capacity(4, 24 * 64, layout),
+                         max_probes=8, dispatch_factor=0.5)
+        steps = [d.step(data[k::2], length[k::2], issuer[k::2], valid[k::2],
+                        now_hour) for k in (0, 1)]
+        outs[dev.type] = (steps, d.host_rows(), d.drain_np(), d.counts())
+    (s_card, r_card, dr_card, c_card) = outs["cuda"]
+    (s_cpu, r_cpu, dr_cpu, c_cpu) = outs["cpu"]
+    for a, b in zip(s_card, s_cpu):
+        for name, x, y in zip(a._fields, a, b):
+            assert x.device.type == "cuda", name
+            assert torch.equal(x.cpu(), y), name
+    np.testing.assert_array_equal(r_card, r_cpu)
+    np.testing.assert_array_equal(c_card, c_cpu)
+    for x, y in zip(dr_card, dr_cpu):
+        np.testing.assert_array_equal(x, y)

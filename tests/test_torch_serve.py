@@ -7,7 +7,7 @@ The cases of ``tests/test_serve.py`` that need no mesh run on a port
 the threaded ingest+query consistency stress through a growing table,
 the HTTP API, the replica pool at mixed epochs, the hot-serial cache,
 oversized-bulk splits and the staleness surface. The two sharded cases
-of that file wait for ROADMAP item 12; here a sharded view is refused.
+of that file are in ``tests/test_torch_parallel.py``.
 
 Parity: the same entries go through the JAX ``TpuAggregator`` and the
 port's, in both table layouts; their captured views hold the same rows
@@ -287,14 +287,18 @@ def test_view_device_mode_parity(template):
 
 
 def test_sharded_view_refused(template):
-    """Sharded views wait for the sharded aggregator (item 12)."""
-    agg = _agg()
-    agg.dedup = object()
-    with pytest.raises(ValueError, match="item 12"):
-        capture_view(agg, epoch=1)
-    with pytest.raises(ValueError, match="item 12"):
-        snapmod.TableView(1, np.zeros((4, 5), np.uint32), "open", 2, 32, 0,
-                          {}, np.zeros(4, np.int64), {}, {}, None, 0, 4)
+    """What is refused of a sharded view: only pinned blocks that do not
+    match its shard count. (The name dates from when every sharded view
+    was refused; a sharded view is now served, and an empty 2-shard view
+    answers unknown through the routed probe.)"""
+    view = snapmod.TableView(1, np.zeros((4, 5), np.uint32), "open", 2, 32,
+                             0, {}, np.zeros(4, np.int64), {}, {}, None, 0, 4)
+    assert not view.contains_fps(np.arange(12, dtype=np.uint32).reshape(
+        3, 4)).any()
+    with pytest.raises(ValueError, match="1 blocks for 2 shards"):
+        snapmod.TableView(1, None, "open", 2, 32, 0, {},
+                          np.zeros(4, np.int64), {}, {}, None, 0, 4,
+                          dev_blocks=[torch.zeros((2, 5), dtype=torch.int32)])
 
 
 def test_snapshot_manager_staleness_refresh(template):
